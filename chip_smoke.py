@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA H100 and hold it to itself.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device, ``nvcc`` and the repository's ``src/`` beside this
+file; exits non-zero without them.  In order, it
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the CUDA kernels from ``src/repro_torch/csrc`` and prints the
+   seconds and ``ptxas``'s register/spill report;
+3. turns TF32 off for matmul and cuDNN and asserts it;
+4. holds every kernel against its plain PyTorch version on the card, at
+   the shapes the served paper model gives it (``SNNConfig()``, masks at
+   density 0.5, batch 64): logits and currents within 1e-5, spikes and
+   counters exactly.  The per-layer kernels are checked on every call the
+   plan's layer-by-layer path makes, on the operands that path gives them;
+5. runs the main path's two paths, each with every launch count set to 0
+   just before it and read just after: an
+   ``AsyncAMCServeEngine(backend="cuda_fused")`` answers 256 submitted
+   requests, which must launch the whole-network kernel and nothing else;
+   then the same plan runs one batch layer by layer, which must launch
+   each per-layer kernel and not the whole-network one.  The engine's
+   predictions must equal the plain-torch ``goap`` backend's on the
+   card; the layer-by-layer logits must be within 1e-5 of the fused
+   kernel's and give the ``goap`` backend's predictions;
+6. times each kernel with CUDA events (median of 20 runs after warm-up)
+   beside its plain version, its bound and, where one PyTorch call
+   computes the same function, that call; and splits one served batch's
+   step (host to host) into its Σ-Δ encode and its fused kernel;
+7. prints one JSON line of per-kernel results, and last
+   ``{"ok": true, "device": {...}}``.
+
+Any mismatch or exception ends the run with a non-zero exit code.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet).  The 67 TFLOP/s f32 rate of the CUDA
+# cores counts a fused multiply-add as two operations; the kernels here do
+# separate adds, multiplies and compares, one f32 instruction each, so their
+# operations peak at half that rate.
+PEAK_F32_INSTRUCTIONS = 67e12 / 2
+PEAK_BYTES = 3.35e12
+BATCH = 64
+REQUESTS = 256
+SEED = 0
+DENSITY = 0.5
+ATOL = 1e-5
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_timer(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of one call, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_F32_INSTRUCTIONS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+class Check:
+    """Collects per-call comparisons of a kernel against its plain version."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.max_abs_err = 0.0
+
+    def close(self, got, want, atol: float, what: str) -> None:
+        import torch
+
+        if got.shape != want.shape:
+            raise AssertionError(f"{self.name} {what}: shape {tuple(got.shape)} "
+                                 f"!= {tuple(want.shape)}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{self.name} {what}: non-finite output")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        self.max_abs_err = max(self.max_abs_err, err)
+        if err > atol:
+            raise AssertionError(f"{self.name} {what}: max |err| {err} > {atol}")
+        print(f"  {self.name} {what}: max |err| {err:.3e} (atol {atol})")
+
+
+def check_kernels(plan, iq, frames_b, timer):
+    """Phase 4 and 6: each kernel against its plain version, then timed.
+
+    Returns per-kernel rows (without launch counts)."""
+    import torch
+
+    from repro_torch.core.encoder import normalize_iq
+    from repro_torch.kernels import stream_fused_forward, stream_fused_forward_ref
+
+    stack = plan.fused_stack()
+    analog = normalize_iq(iq)
+    rows = []
+
+    # -- stream_fused_forward, both input modes ------------------------------
+    chk = Check("stream_fused_forward")
+    work = {}
+    for encode, x in ((False, frames_b), (True, analog)):
+        got_l, got_a = stream_fused_forward(stack, x, encode=encode)
+        want_l, want_a = stream_fused_forward_ref(
+            stack, x, encode=encode, work=None if encode else work)
+        torch.cuda.synchronize()
+        chk.close(got_l, want_l, ATOL, f"logits encode={encode}")
+        chk.close(got_a, want_a, 0.0, f"conv_accs encode={encode}")
+        n_same = int((got_l == want_l).all(-1).sum())
+        print(f"  stream_fused_forward encode={encode}: {n_same}/{x.shape[0]} "
+              "samples with bit-equal logits")
+    operands = [frames_b]
+    for layer in stack.layers:
+        for f in ("w_cm", "counts", "lif", "w"):
+            if hasattr(layer, f):
+                operands.append(torch.as_tensor(getattr(layer, f)))
+    n_b = nbytes(*operands) + 4 * frames_b.shape[0] * (stack.n_classes + stack.n_convs)
+    n_ops = work["conv_adds"] + work["fc_adds"] + 4 * work["lif_updates"]
+    b_ms, b_by = bound_ms(n_b, n_ops)
+    rows.append(dict(
+        name="stream_fused_forward", route="cuda",
+        source="src/repro_torch/csrc/stream_fused.cu",
+        replaces="src/repro/kernels/stream_fused.py:210",
+        max_abs_err=chk.max_abs_err,
+        ms=timer(lambda: stream_fused_forward(stack, frames_b)),
+        plain_ms=timer(lambda: stream_fused_forward_ref(stack, frames_b)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # -- the per-layer kernels, on the plan's layer-by-layer path ----------
+    checks, calls = check_per_layer(plan, frames_b)
+    for name, kernel in PER_LAYER.items():
+        plain = _plain(name)
+        records = calls[name]
+        b_ms, b_by = bound_ms(sum(c["bytes"] for c in records),
+                              sum(c["ops"] for c in records))
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{kernel}.cu",
+            replaces=REPLACES[name], max_abs_err=checks[name].max_abs_err,
+            ms=sum(timer(lambda c=c: _kernel(name)(*c["args"], **c["kwargs"]))
+                   for c in records),
+            plain_ms=sum(timer(lambda c=c: plain(*c["args"])) for c in records),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=(None if records[0]["library"] is None else
+                        sum(timer(c["library"]) for c in records))))
+    return rows
+
+
+# per-layer kernel -> its CUDA source's stem
+PER_LAYER = {"goap_conv_block_sparse": "goap_conv", "wm_fc_matmul": "wm_fc",
+             "lif_update_fused": "lif_update"}
+REPLACES = {"goap_conv_block_sparse": "src/repro/kernels/goap_conv.py:55",
+            "wm_fc_matmul": "src/repro/kernels/wm_fc.py:40",
+            "lif_update_fused": "src/repro/kernels/lif_update.py:46"}
+# per output of each per-layer kernel: its tolerance against the plain version
+OUTPUT_ATOL = {"goap_conv_block_sparse": (ATOL,), "wm_fc_matmul": (ATOL,),
+               "lif_update_fused": (0.0, ATOL)}    # spikes exactly, v_fin
+
+
+def _kernel(name):
+    from repro_torch import kernels
+
+    return kernels.KERNELS[name]
+
+
+def _plain(name):
+    from repro_torch import kernels
+
+    return getattr(kernels, name + "_ref")
+
+
+def check_per_layer(plan, frames_b):
+    """Run the plan's layer-by-layer path once with every per-layer kernel
+    call held against its plain version on the operands the path gave it.
+
+    The calls go through ``repro_torch.kernels.ops``, whose wrappers
+    (``goap_conv_op``, ``wm_fc_op``, ``lif_op``) the path's cells call;
+    each kernel there is replaced by a checking shim for this one run.
+    Returns ({kernel: Check}, {kernel: [call records]})."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    checks = {name: Check(name) for name in PER_LAYER}
+    calls = {name: [] for name in PER_LAYER}
+
+    def checked(name, kernel):
+        def call(*args, **kwargs):
+            got = kernel(*args, **kwargs)
+            want = _plain(name)(*args)
+            torch.cuda.synchronize()
+            outs = got if isinstance(got, tuple) else (got,)
+            wants = want if isinstance(want, tuple) else (want,)
+            for i, (g, w, atol) in enumerate(zip(outs, wants, OUTPUT_ATOL[name])):
+                checks[name].close(g, w, atol, f"call {len(calls[name])} "
+                                   f"output {i} {tuple(g.shape)}")
+            ops_needed, library = per_layer_work(name, args)
+            calls[name].append(dict(args=args, kwargs=kwargs, ops=ops_needed,
+                                    library=library, bytes=nbytes(*args, *outs)))
+            return got
+        return call
+
+    saved = {name: getattr(ops, name) for name in PER_LAYER}
+    for name, kernel in saved.items():
+        setattr(ops, name, checked(name, kernel))
+    try:
+        plan.bound.batch(frames_b)
+    finally:
+        for name, kernel in saved.items():
+            setattr(ops, name, kernel)
+    missing = [name for name, c in calls.items() if not c]
+    if missing:
+        raise AssertionError(f"the layer-by-layer path never called {missing}")
+    return checks, calls
+
+
+def per_layer_work(name, args):
+    """(operations these inputs need, one PyTorch call computing the same
+    function or None) for one call of a per-layer kernel."""
+    import torch
+
+    if name == "goap_conv_block_sparse":
+        blocks, cols, x = args
+        dense = dense_of_blocks(blocks, cols, x.shape[0])
+        adds = (dense != 0).sum(0).double() @ x.sum(1).double()
+        return float(adds), lambda: torch.matmul(dense, x)
+    if name == "wm_fc_matmul":
+        s, w = args
+        adds = (s != 0).sum(0).double() @ (w != 0).sum(1).double()
+        return float(adds), lambda: torch.matmul(s, w)
+    # LIF: multiply, add, multiply, subtract per neuron and timestep
+    return 4.0 * args[0].numel(), None
+
+
+def dense_of_blocks(blocks, cols, k_pad: int):
+    """The dense padded W' (n_oc_tiles*BO, K_pad) that block-sparse tiles
+    stand for (zero tiles add nothing)."""
+    n_oc_tiles, _, bo, bk = blocks.shape
+    dense = blocks.new_zeros((n_oc_tiles, bo, k_pad // bk, bk))
+    for r, row in enumerate(cols.tolist()):
+        for t, c in enumerate(row):
+            dense[r, :, c] += blocks[r, t]
+    return dense.reshape(n_oc_tiles * bo, k_pad)
+
+
+def expect_launches(counts, launched, path: str) -> None:
+    """Every kernel in ``launched`` ran on ``path``, and no other did."""
+    wrong = {name: n for name, n in counts.items()
+             if (n > 0) != (name in launched)}
+    if wrong:
+        raise AssertionError(f"{path}: launches {counts}; expected exactly "
+                             f"{sorted(launched)} to launch")
+
+
+def run_main_path(params, masks, cfg, iq, frames_b, device):
+    """Phase 5, two paths, each with the launch counts set to 0 just
+    before it and read just after: the engine serves REQUESTS frames (the
+    whole-network kernel), then the same plan runs one batch layer by
+    layer (the per-layer kernels).  Returns (predictions, engine stats,
+    engine, layered logits, {path: launches})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with AsyncAMCServeEngine(params, cfg, masks, backend="cuda_fused",
+                             max_batch=BATCH, device=device) as engine:
+        futures = [engine.submit(frame) for frame in iq]
+        preds = np.array([f.result(timeout=600) for f in futures])
+        stats = engine.stats.summary()
+    torch.cuda.synchronize()
+    served = launch_counts()
+    print(f"main path, served: {len(preds)} requests in "
+          f"{time.perf_counter() - t0:.3f} s; launches {served}")
+    expect_launches(served, {"stream_fused_forward"}, "served path")
+
+    reset_launch_counts()
+    layered = engine.plan.bound.batch(frames_b)
+    torch.cuda.synchronize()
+    per_layer = launch_counts()
+    print(f"main path, layer by layer: one batch of {frames_b.shape[0]}; "
+          f"launches {per_layer}")
+    expect_launches(per_layer, set(PER_LAYER), "layer-by-layer path")
+    return preds, stats, engine, layered, {"served": served,
+                                           "layered": per_layer}
+
+
+def run(device, timer, seed: int = SEED):
+    """Phases 3-7 on ``device``; returns the kernels JSON object."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (SNNConfig, compile_plan, compile_snn, init_snn,
+                                 make_mask_pytree)
+    from repro_torch.data.pipeline import (sigma_delta_encode_batch,
+                                           sigma_delta_encode_np)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+    cfg = SNNConfig()
+    params = init_snn(seed, cfg)
+    masks = make_mask_pytree(params, DENSITY)
+    rng = np.random.default_rng(seed)
+    iq = rng.normal(size=(REQUESTS, cfg.conv_specs[0][1], cfg.input_width)
+                    ).astype(np.float32)
+    program = compile_snn(cfg)
+    plan = compile_plan(program, params, masks=masks, assignment="cuda_fused",
+                        device=device)
+
+    iq_b = iq[:BATCH]
+    iq_dev = torch.as_tensor(iq_b, device=device)
+    frames_b = sigma_delta_encode_batch(iq_dev, cfg.timesteps)   # (B,T,C,W)
+
+    print("phase: kernels against their plain versions")
+    rows = check_kernels(plan, iq_dev, frames_b, timer)
+
+    print("phase: main path")
+    preds, stats, engine, layered, launches = run_main_path(
+        params, masks, cfg, iq, frames_b, device)
+    goap_plan = compile_plan(program, params, masks=masks, assignment="goap",
+                             device=device)
+    goap_logits = [goap_plan.bound.batch(torch.as_tensor(chunk, device=device))
+                   for chunk in np.split(sigma_delta_encode_np(iq, cfg.timesteps),
+                                         REQUESTS // BATCH)]
+    want = np.concatenate([lg.argmax(-1).cpu().numpy() for lg in goap_logits])
+    n_diff = int((preds != want).sum())
+    print(f"  engine predictions vs plain goap backend: {n_diff} of "
+          f"{len(preds)} differ")
+    if n_diff:
+        raise AssertionError(f"{n_diff} served predictions differ from the "
+                             "plain goap backend")
+    # the layer-by-layer path against the fused kernel and the goap backend
+    fused = plan.batch(frames_b)
+    if not (torch.isfinite(layered).all() and layered.shape == (BATCH, cfg.n_classes)):
+        raise AssertionError("layered path gave malformed logits")
+    diff = float((layered - fused).abs().max())
+    n_pred = int((layered.argmax(-1).cpu().numpy() != want[:BATCH]).sum())
+    print(f"  cuda_fused layered vs fused logits: max |diff| {diff:.3e} "
+          f"(atol {ATOL}); vs plain goap: max |diff| "
+          f"{float((layered - goap_logits[0]).abs().max()):.3e}, "
+          f"{n_pred} of {BATCH} predictions differ")
+    if diff > ATOL or n_pred:
+        raise AssertionError("the layer-by-layer path disagrees with the fused "
+                             "kernel or the plain goap backend")
+    print(f"  engine stats: {json.dumps(stats)}")
+    # where one served batch's time goes (timed after the count was read)
+    split = {
+        "step_ms": timer(lambda: engine.step(iq_b)),
+        "encode_ms": timer(lambda: sigma_delta_encode_batch(iq_dev,
+                                                            cfg.timesteps)),
+        "fused_kernel_ms": timer(lambda: plan.batch(frames_b)),
+    }
+    print(f"serve_step {json.dumps(split)}")
+    for row in rows:
+        # each kernel's count from the path that launches it, and both paths'
+        path = "served" if row["name"] == "stream_fused_forward" else "layered"
+        row["launches"] = launches[path][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {"kernels": [{k: row[k] for k in keys} for row in rows]}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    card = nvidia_smi()
+    print(card)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.3f} s")
+    for line in build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "build seconds" in line:
+            print("  " + line.strip())
+    device = torch.device("cuda", 0)
+    result = run(device, cuda_timer)
+    for row in result["kernels"]:
+        print(f"  {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+              f"bound {row['bound_ms']:.6f} by {row['bound_by']}, library "
+              f"{row['library_ms']}), launches {row['launches']}")
+    print(json.dumps(result))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

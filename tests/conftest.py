@@ -39,3 +39,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
