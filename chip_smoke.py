@@ -14,7 +14,9 @@ file; exits non-zero without them.  In order, it
    the shapes the served paper model gives it (``SNNConfig()``, masks at
    density 0.5, batch 64): logits and currents within 1e-5, spikes and
    counters exactly.  The per-layer kernels are checked on every call the
-   plan's layer-by-layer path makes, on the operands that path gives them;
+   plan's layer-by-layer path makes, on the operands that path gives them,
+   and the conv and FC kernels must also equal an in-order eager version
+   of their arithmetic bit for bit;
 5. runs the main path's two paths, each with every launch count set to 0
    just before it and read just after: an
    ``AsyncAMCServeEngine(backend="cuda_fused")`` answers 256 submitted
@@ -22,12 +24,18 @@ file; exits non-zero without them.  In order, it
    then the same plan runs one batch layer by layer, which must launch
    each per-layer kernel and not the whole-network one.  The engine's
    predictions must equal the plain-torch ``goap`` backend's on the
-   card; the layer-by-layer logits must be within 1e-5 of the fused
-   kernel's and give the ``goap`` backend's predictions;
-6. times each kernel with CUDA events (median of 20 runs after warm-up)
-   beside its plain version, its bound and, where one PyTorch call
-   computes the same function, that call; and splits one served batch's
-   step (host to host) into its Σ-Δ encode and its fused kernel;
+   card; the layer-by-layer logits must equal the fused kernel's exactly
+   and give the ``goap`` backend's predictions;
+6. times each kernel's device time (``ms``) and that of the one PyTorch
+   call that computes the same function (``library_ms``) the same way: 20
+   back-to-back calls captured into one CUDA graph, replayed 10 times
+   between two CUDA events, the median replay divided by 20; beside them
+   a single
+   call between two events (``call_ms``, host work included), the plain
+   version the same way (``plain_ms``) and the bound.  It then splits one
+   served batch's step (host to host) into its Σ-Δ encode and its fused
+   kernel, and times one layer-by-layer batch host to host beside the
+   sum of its kernels' ``ms``;
 7. prints one JSON line of per-kernel results, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -41,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+import typing
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -64,8 +73,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_timer(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median milliseconds of one call, by CUDA events."""
+def host_timer(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median host-to-host milliseconds of ``fn(); torch.cuda.synchronize()``."""
     import torch
 
     for _ in range(warmup):
@@ -73,13 +82,10 @@ def cuda_timer(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -98,6 +104,19 @@ class Check:
     def __init__(self, name: str):
         self.name = name
         self.max_abs_err = 0.0
+        self.inorder_max_abs_err = None
+
+    def equal(self, got, want, what: str) -> None:
+        """Bit-for-bit equality with the in-order version."""
+        import torch
+
+        if got.shape != want.shape or not torch.equal(got, want):
+            err = (float((got - want).abs().max())
+                   if got.shape == want.shape else float("inf"))
+            raise AssertionError(f"{self.name} {what}: not bit-equal to the "
+                                 f"in-order version (max |err| {err})")
+        self.inorder_max_abs_err = 0.0
+        print(f"  {self.name} {what}: bit-equal to the in-order version")
 
     def close(self, got, want, atol: float, what: str) -> None:
         import torch
@@ -114,9 +133,20 @@ class Check:
         print(f"  {self.name} {what}: max |err| {err:.3e} (atol {atol})")
 
 
-def check_kernels(plan, iq, frames_b, timer):
+class Timers(typing.NamedTuple):
+    """The three clocks of a run (``repro_torch.kernels.timing``'s on the
+    card, host stand-ins when rehearsing on a CPU)."""
+    call: typing.Callable      # one call between CUDA events (call_ms)
+    graph: typing.Callable     # device time per call, CUDA-graph replay (ms)
+    host: typing.Callable      # host to host, ending in a synchronise
+
+
+def check_kernels(plan, iq, frames_b, timers):
     """Phase 4 and 6: each kernel against its plain version, then timed.
 
+    ``ms`` and ``library_ms`` are device times by CUDA-graph replay;
+    ``call_ms`` and ``plain_ms`` are single calls between CUDA events,
+    host work included (the plain versions are host-driven loops).
     Returns per-kernel rows (without launch counts)."""
     import torch
 
@@ -153,8 +183,9 @@ def check_kernels(plan, iq, frames_b, timer):
         source="src/repro_torch/csrc/stream_fused.cu",
         replaces="src/repro/kernels/stream_fused.py:210",
         max_abs_err=chk.max_abs_err,
-        ms=timer(lambda: stream_fused_forward(stack, frames_b)),
-        plain_ms=timer(lambda: stream_fused_forward_ref(stack, frames_b)),
+        ms=timers.graph(lambda: stream_fused_forward(stack, frames_b)),
+        call_ms=timers.call(lambda: stream_fused_forward(stack, frames_b)),
+        plain_ms=timers.call(lambda: stream_fused_forward_ref(stack, frames_b)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
 
     # -- the per-layer kernels, on the plan's layer-by-layer path ----------
@@ -164,15 +195,22 @@ def check_kernels(plan, iq, frames_b, timer):
         records = calls[name]
         b_ms, b_by = bound_ms(sum(c["bytes"] for c in records),
                               sum(c["ops"] for c in records))
+
+        def total(clock, fn_of):
+            return sum(clock(fn_of(c)) for c in records)
+
+        def launch(c):
+            return lambda: _kernel(name)(*c["args"], **c["kwargs"])
+
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{kernel}.cu",
             replaces=REPLACES[name], max_abs_err=checks[name].max_abs_err,
-            ms=sum(timer(lambda c=c: _kernel(name)(*c["args"], **c["kwargs"]))
-                   for c in records),
-            plain_ms=sum(timer(lambda c=c: plain(*c["args"])) for c in records),
+            inorder_max_abs_err=checks[name].inorder_max_abs_err,
+            ms=total(timers.graph, launch), call_ms=total(timers.call, launch),
+            plain_ms=total(timers.call, lambda c: lambda: plain(*c["args"])),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=(None if records[0]["library"] is None else
-                        sum(timer(c["library"]) for c in records))))
+                        total(timers.graph, lambda c: c["library"]))))
     return rows
 
 
@@ -185,6 +223,8 @@ REPLACES = {"goap_conv_block_sparse": "src/repro/kernels/goap_conv.py:55",
 # per output of each per-layer kernel: its tolerance against the plain version
 OUTPUT_ATOL = {"goap_conv_block_sparse": (ATOL,), "wm_fc_matmul": (ATOL,),
                "lif_update_fused": (0.0, ATOL)}    # spikes exactly, v_fin
+# kernels held bit for bit to an in-order eager version of their arithmetic
+INORDER = ("goap_conv_block_sparse", "wm_fc_matmul")
 
 
 def _kernel(name):
@@ -197,6 +237,12 @@ def _plain(name):
     from repro_torch import kernels
 
     return getattr(kernels, name + "_ref")
+
+
+def _inorder(name):
+    from repro_torch import kernels
+
+    return getattr(kernels, name + "_inorder")
 
 
 def check_per_layer(plan, frames_b):
@@ -221,9 +267,11 @@ def check_per_layer(plan, frames_b):
             torch.cuda.synchronize()
             outs = got if isinstance(got, tuple) else (got,)
             wants = want if isinstance(want, tuple) else (want,)
+            what = f"call {len(calls[name])}"
             for i, (g, w, atol) in enumerate(zip(outs, wants, OUTPUT_ATOL[name])):
-                checks[name].close(g, w, atol, f"call {len(calls[name])} "
-                                   f"output {i} {tuple(g.shape)}")
+                checks[name].close(g, w, atol, f"{what} output {i} {tuple(g.shape)}")
+            if name in INORDER:
+                checks[name].equal(got, _inorder(name)(*args), what)
             ops_needed, library = per_layer_work(name, args)
             calls[name].append(dict(args=args, kwargs=kwargs, ops=ops_needed,
                                     library=library, bytes=nbytes(*args, *outs)))
@@ -250,6 +298,8 @@ def per_layer_work(name, args):
     import torch
 
     if name == "goap_conv_block_sparse":
+        from repro_torch.kernels.goap_conv import dense_of_blocks
+
         blocks, cols, x = args
         dense = dense_of_blocks(blocks, cols, x.shape[0])
         adds = (dense != 0).sum(0).double() @ x.sum(1).double()
@@ -260,17 +310,6 @@ def per_layer_work(name, args):
         return float(adds), lambda: torch.matmul(s, w)
     # LIF: multiply, add, multiply, subtract per neuron and timestep
     return 4.0 * args[0].numel(), None
-
-
-def dense_of_blocks(blocks, cols, k_pad: int):
-    """The dense padded W' (n_oc_tiles*BO, K_pad) that block-sparse tiles
-    stand for (zero tiles add nothing)."""
-    n_oc_tiles, _, bo, bk = blocks.shape
-    dense = blocks.new_zeros((n_oc_tiles, bo, k_pad // bk, bk))
-    for r, row in enumerate(cols.tolist()):
-        for t, c in enumerate(row):
-            dense[r, :, c] += blocks[r, t]
-    return dense.reshape(n_oc_tiles * bo, k_pad)
 
 
 def expect_launches(counts, launched, path: str) -> None:
@@ -318,7 +357,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
                                            "layered": per_layer}
 
 
-def run(device, timer, seed: int = SEED):
+def run(device, timers: Timers, seed: int = SEED):
     """Phases 3-7 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
@@ -348,7 +387,7 @@ def run(device, timer, seed: int = SEED):
     frames_b = sigma_delta_encode_batch(iq_dev, cfg.timesteps)   # (B,T,C,W)
 
     print("phase: kernels against their plain versions")
-    rows = check_kernels(plan, iq_dev, frames_b, timer)
+    rows = check_kernels(plan, iq_dev, frames_b, timers)
 
     print("phase: main path")
     preds, stats, engine, layered, launches = run_main_path(
@@ -372,29 +411,38 @@ def run(device, timer, seed: int = SEED):
     diff = float((layered - fused).abs().max())
     n_pred = int((layered.argmax(-1).cpu().numpy() != want[:BATCH]).sum())
     print(f"  cuda_fused layered vs fused logits: max |diff| {diff:.3e} "
-          f"(atol {ATOL}); vs plain goap: max |diff| "
+          f"(must be 0); vs plain goap: max |diff| "
           f"{float((layered - goap_logits[0]).abs().max()):.3e}, "
           f"{n_pred} of {BATCH} predictions differ")
-    if diff > ATOL or n_pred:
+    if diff != 0.0 or n_pred:
         raise AssertionError("the layer-by-layer path disagrees with the fused "
                              "kernel or the plain goap backend")
     print(f"  engine stats: {json.dumps(stats)}")
     # where one served batch's time goes (timed after the count was read)
     split = {
-        "step_ms": timer(lambda: engine.step(iq_b)),
-        "encode_ms": timer(lambda: sigma_delta_encode_batch(iq_dev,
-                                                            cfg.timesteps)),
-        "fused_kernel_ms": timer(lambda: plan.batch(frames_b)),
+        "step_ms": timers.call(lambda: engine.step(iq_b)),
+        "encode_ms": timers.call(lambda: sigma_delta_encode_batch(iq_dev,
+                                                                  cfg.timesteps)),
+        "fused_kernel_ms": timers.call(lambda: plan.batch(frames_b)),
     }
     print(f"serve_step {json.dumps(split)}")
+    # one layer-by-layer batch host to host (no graph), beside the device
+    # time of the kernels it launches: the rest is X' construction, layout
+    # copies and launch overhead on the host
+    kernels_ms = sum(row["ms"] for row in rows if row["name"] in PER_LAYER)
+    layered_ms = timers.host(lambda: plan.bound.batch(frames_b))
+    print("layered_step " + json.dumps({
+        "step_ms": layered_ms, "kernels_ms": kernels_ms,
+        "kernels_share": kernels_ms / layered_ms}))
     for row in rows:
         # each kernel's count from the path that launches it, and both paths'
         path = "served" if row["name"] == "stream_fused_forward" else "layered"
         row["launches"] = launches[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return {"kernels": [{k: row[k] for k in keys} for row in rows]}
+            "max_abs_err", "inorder_max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    return {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
 
 
 def main() -> int:
@@ -413,13 +461,17 @@ def main() -> int:
     build.library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "build seconds" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "build seconds")):
             print("  " + line.strip())
+    from repro_torch.kernels.timing import call_ms, graph_ms
+
     device = torch.device("cuda", 0)
-    result = run(device, cuda_timer)
+    result = run(device, Timers(call_ms, graph_ms, host_timer))
     for row in result["kernels"]:
-        print(f"  {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-              f"bound {row['bound_ms']:.6f} by {row['bound_by']}, library "
+        print(f"  {row['name']}: {row['ms']:.4f} ms (one call "
+              f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+              f"{row['bound_ms']:.6f} by {row['bound_by']}, library "
               f"{row['library_ms']}), launches {row['launches']}")
     print(json.dumps(result))
     print(card)

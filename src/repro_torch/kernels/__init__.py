@@ -16,11 +16,12 @@ counts its launches in a plain int attribute, ``wrapper.launches``.
 """
 from typing import Dict
 
-from .goap_conv import goap_conv_block_sparse, goap_conv_block_sparse_ref
+from .goap_conv import (goap_conv_block_sparse, goap_conv_block_sparse_inorder,
+                        goap_conv_block_sparse_ref)
 from .lif_update import lif_update_fused, lif_update_fused_ref
 from .ops import goap_conv_op, lif_op, wm_fc_op
 from .stream_fused import stream_fused_forward, stream_fused_forward_ref
-from .wm_fc import wm_fc_matmul, wm_fc_matmul_ref
+from .wm_fc import wm_fc_matmul, wm_fc_matmul_inorder, wm_fc_matmul_ref
 
 __all__ = [
     "KERNELS",
@@ -28,10 +29,12 @@ __all__ = [
     "reset_launch_counts",
     "goap_conv_block_sparse",
     "goap_conv_block_sparse_ref",
+    "goap_conv_block_sparse_inorder",
     "lif_update_fused",
     "lif_update_fused_ref",
     "wm_fc_matmul",
     "wm_fc_matmul_ref",
+    "wm_fc_matmul_inorder",
     "stream_fused_forward",
     "stream_fused_forward_ref",
     "goap_conv_op",

@@ -24,6 +24,8 @@ from repro_torch.core.lif import init_lif_params
 from repro_torch.core.sparse_format import block_sparse_from_dense
 from repro_torch.data.pipeline import sigma_delta_encode_batch
 from repro_torch.kernels import (
+    goap_conv_block_sparse,
+    goap_conv_block_sparse_inorder,
     goap_conv_op,
     launch_counts,
     lif_op,
@@ -31,6 +33,7 @@ from repro_torch.kernels import (
     stream_fused_forward,
     stream_fused_forward_ref,
     wm_fc_matmul,
+    wm_fc_matmul_inorder,
     wm_fc_matmul_ref,
 )
 
@@ -129,3 +132,111 @@ def test_engine_serves_through_the_fused_kernel(cuda):
     want = plan.batch(sigma_delta_encode_batch(
         torch.as_tensor(iq, device=cuda), SMALL.timesteps)).argmax(-1)
     np.testing.assert_array_equal(preds, want.cpu().numpy())
+
+
+# The layer-by-layer path's conv and FC operands on the paper model at
+# batch 64, T = 8: X' has 512 * W columns, the FCs take 512 rows.
+PAPER_CONVS = [(11, 2, 16, 128), (11, 16, 32, 64), (5, 32, 64, 32)]   # kw, ic, oc, W
+LAYERED_ROWS = 64 * 8
+
+
+def _bits_equal(got, want):
+    """Bit-for-bit equality (the in-order versions never give -0)."""
+    assert got.shape == want.shape
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"max |err| {float((got - want).abs().max())}")
+
+
+def _conv_operands(kw, ic, oc, oi, seed, device, bo=8, bk=32):
+    rng = np.random.default_rng(seed)
+    k = ((rng.random((kw, ic, oc)) < 0.5)
+         * rng.normal(size=(kw, ic, oc))).astype(np.float32)
+    bs = block_sparse_from_dense(k, block_oc=bo, block_k=bk)
+    x = (rng.random((bs.padded_k, oi)) < 0.5).astype(np.float32)
+    return (torch.as_tensor(bs.blocks, device=device),
+            torch.as_tensor(bs.block_cols, device=device),
+            torch.as_tensor(x, device=device))
+
+
+def _goap(blocks, cols, x):
+    return goap_conv_block_sparse(blocks, cols, x, block_oc=blocks.shape[2],
+                                  block_k=blocks.shape[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,ic,oc,w", PAPER_CONVS, ids=["conv1", "conv2", "conv3"])
+def test_goap_conv_equals_inorder_at_paper_shapes(cuda, kw, ic, oc, w):
+    blocks, cols, x = _conv_operands(kw, ic, oc, LAYERED_ROWS * w, 0, cuda)
+    _bits_equal(_goap(blocks, cols, x), goap_conv_block_sparse_inorder(blocks, cols, x))
+
+
+def _raw_conv(rng, r, mt, bo, bk, nk, oi, device):
+    """Random tiles with repeated, unordered k-tile lists."""
+    return (torch.as_tensor(rng.normal(size=(r, mt, bo, bk)).astype(np.float32), device=device),
+            torch.as_tensor(rng.integers(0, nk, (r, mt)).astype(np.int32), device=device),
+            torch.as_tensor((rng.random((nk * bk, oi)) < 0.5).astype(np.float32),
+                            device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_strip", "oi_not_multiple_of_4", "non_binary",
+                                  "unordered_repeated_cols", "bo4", "bo16", "bo6",
+                                  "bo3", "all_zero", "all_one", "single_column"])
+def test_goap_conv_edges_equal_inorder(cuda, case):
+    rng = np.random.default_rng(7)
+    oi = {"ragged_strip": 1000, "oi_not_multiple_of_4": 37, "single_column": 1}.get(case, 256)
+    bo = {"bo4": 4, "bo16": 16, "bo6": 6, "bo3": 3}.get(case, 8)
+    if case == "unordered_repeated_cols":
+        blocks, cols, x = _raw_conv(rng, 3, 4, 8, 16, 5, 300, cuda)
+    else:
+        blocks, cols, x = _conv_operands(5, 12, 40, oi, 3, cuda, bo=bo)
+    if case == "non_binary":
+        x = torch.as_tensor(rng.normal(size=tuple(x.shape)).astype(np.float32), device=cuda)
+        x[x.abs() < 0.5] = 0.0
+    elif case == "all_zero":
+        x = torch.zeros_like(x)
+    elif case == "all_one":
+        x = torch.ones_like(x)
+    _bits_equal(_goap(blocks, cols, x), goap_conv_block_sparse_inorder(blocks, cols, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [5, -1])
+def test_goap_conv_out_of_range_tile_gives_nan_rows(cuda, bad):
+    rng = np.random.default_rng(8)
+    blocks, cols, x = _raw_conv(rng, 3, 4, 8, 16, 5, 130, cuda)
+    cols[1, 2] = bad
+    got = _goap(blocks, cols, x)
+    want = goap_conv_block_sparse_inorder(blocks, cols, x)
+    assert torch.isnan(got[8:16]).all() and torch.isnan(want[8:16]).all()
+    _bits_equal(got[:8], want[:8])
+    _bits_equal(got[16:], want[16:])
+
+
+def _fc_operands(b, din, dout, seed, device, spikes="binary"):
+    rng = np.random.default_rng(seed)
+    s = {"binary": (rng.random((b, din)) < 0.5).astype(np.float32),
+         "zero": np.zeros((b, din), np.float32),
+         "one": np.ones((b, din), np.float32),
+         "non_binary": (rng.random((b, din)) < 0.5) * rng.normal(size=(b, din))}[spikes]
+    w = ((rng.random((din, dout)) < 0.5) * rng.normal(size=(din, dout))).astype(np.float32)
+    return (torch.as_tensor(np.asarray(s, np.float32), device=device),
+            torch.as_tensor(w, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,din,dout,spikes", [
+    (LAYERED_ROWS, 1024, 128, "binary"),      # FC1 on the layered path
+    (LAYERED_ROWS, 128, 11, "binary"),        # FC2
+    (1, 1024, 128, "binary"),
+    (1, 128, 11, "binary"),
+    (37, 100, 11, "binary"),                  # IN and OUT not multiples of 4
+    (64, 1024, 128, "zero"),
+    (64, 1024, 128, "one"),
+    (64, 300, 11, "non_binary"),
+    (70_000, 64, 11, "binary"),               # more rows than one grid axis
+], ids=["fc1", "fc2", "batch1_fc1", "batch1_fc2", "unaligned", "all_zero",
+        "all_one", "non_binary", "big_batch"])
+def test_wm_fc_equals_inorder(cuda, b, din, dout, spikes):
+    s, w = _fc_operands(b, din, dout, 1, cuda, spikes)
+    _bits_equal(wm_fc_matmul(s, w), wm_fc_matmul_inorder(s, w))

@@ -31,13 +31,17 @@ from repro_torch.core.lif import init_lif_params
 from repro_torch.core.sparse_format import block_sparse_from_dense
 from repro_torch.kernels import (
     goap_conv_block_sparse,
+    goap_conv_block_sparse_inorder,
     goap_conv_op,
     lif_op,
     lif_update_fused,
     stream_fused_forward,
     wm_fc_matmul,
+    wm_fc_matmul_inorder,
     wm_fc_op,
 )
+from repro_torch.kernels.goap_conv import MAX_SMEM, ConvLaunch, plan_goap_conv_launch
+from repro_torch.kernels.wm_fc import CHUNK, FCLaunch, plan_wm_fc_launch
 
 RNG = np.random.default_rng(0)
 
@@ -103,6 +107,143 @@ def test_wm_fc_matches_reference(b, din, dout):
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(wm_fc_op(t(s[0]), t(w)).numpy(), want[0],
                                atol=1e-5, rtol=1e-5)
+
+
+def test_goap_inorder_matches_reference_on_unordered_repeated_cols():
+    r, mt, bo, bk, nk, oi = 3, 4, 8, 16, 5, 64
+    blocks = RNG.normal(size=(r, mt, bo, bk)).astype(np.float32)
+    cols = RNG.integers(0, nk, (r, mt)).astype(np.int32)
+    x = RNG.normal(size=(nk * bk, oi)).astype(np.float32) * (RNG.random((nk * bk, oi)) < 0.5)
+    want = np.asarray(ref_goap_raw(jnp.asarray(blocks), jnp.asarray(cols),
+                                   jnp.asarray(x), block_oc=bo, block_k=bk,
+                                   block_oi=oi))
+    got = goap_conv_block_sparse_inorder(t(blocks), torch.from_numpy(cols), t(x))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bad", [5, -1])
+def test_goap_inorder_poisons_the_rows_of_an_out_of_range_tile(bad):
+    blocks = t(RNG.normal(size=(3, 2, 4, 8)))
+    cols = torch.tensor([[0, 1], [2, bad], [4, 3]], dtype=torch.int32)
+    x = t((RNG.random((40, 20)) < 0.5))
+    got = goap_conv_block_sparse_inorder(blocks, cols, x)
+    assert torch.isnan(got[4:8]).all()
+    assert torch.isfinite(got[:4]).all() and torch.isfinite(got[8:]).all()
+    ok = torch.tensor([[0, 1], [2, 0], [4, 3]], dtype=torch.int32)
+    want = goap_conv_block_sparse_inorder(blocks, ok, x)
+    assert torch.equal(got[:4], want[:4]) and torch.equal(got[8:], want[8:])
+
+
+@pytest.mark.parametrize("b,din,dout", [(8, 1024, 128), (5, 100, 37), (16, 128, 11)])
+def test_wm_fc_inorder_matches_reference(b, din, dout):
+    s = (RNG.random((b, din)) < 0.5).astype(np.float32)
+    w = ((RNG.random((din, dout)) < 0.4)
+         * RNG.normal(size=(din, dout))).astype(np.float32)
+    want = np.asarray(ref_wm_fc(jnp.asarray(s), jnp.asarray(w)))
+    np.testing.assert_allclose(wm_fc_matmul_inorder(t(s), t(w)).numpy(), want,
+                               atol=1e-5, rtol=1e-5)
+
+
+# Launch planning (pure Python: what the wrappers hand the card).  The
+# paper model's layer-by-layer shapes at batch 64, T = 8, and SMALL's at
+# batch 8: (n_oc_tiles, max_tiles, block_oc, block_k, K_pad, OI).
+PAPER_CONV_SHAPES = {
+    "conv1": ((2, 1, 8, 32, 32, 65536), ConvLaunch(256, 4, 256, 256, 67592)),
+    "conv2": ((4, 6, 8, 32, 192, 32768), ConvLaunch(128, 4, 132, 256, 221280)),
+    "conv3": ((8, 5, 8, 32, 160, 16384), ConvLaunch(128, 8, 128, 256, 204960)),
+    "small_conv1": ((1, 1, 8, 32, 32, 1024), ConvLaunch(256, 4, 4, 128, 66564)),
+    "small_conv2": ((1, 1, 8, 32, 32, 512), ConvLaunch(256, 4, 2, 128, 66564)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAPER_CONV_SHAPES))
+def test_goap_conv_plan_for_model_shapes(name):
+    shape, want = PAPER_CONV_SHAPES[name]
+    plan = plan_goap_conv_launch(*shape)
+    assert plan == want
+    r, mt, bo, bk, k_pad, oi = shape
+    # two strips of X' (one walked, one in flight) and every tile
+    assert plan.smem_bytes == 4 * (2 * k_pad * plan.strip + r * mt * (bo * bk + 1))
+    assert plan.smem_bytes <= MAX_SMEM
+    n_strips = -(-oi // plan.strip)
+    assert plan.blocks <= n_strips
+    items = r * (bo // plan.rows_per_thread) * plan.strip // 4
+    assert plan.threads == min(256, max(32, items))
+
+
+def test_goap_conv_plan_for_the_small_config_follows_the_plan_built_by_the_path():
+    from _torch_parity import SMALL
+    from repro_torch.models.graph import BLOCK_K, BLOCK_OC
+
+    w, batch = SMALL.input_width, 8
+    for kw, ic, oc in SMALL.conv_specs:
+        k = np.ones((kw, ic, oc), np.float32)
+        bs = block_sparse_from_dense(k, block_oc=BLOCK_OC, block_k=BLOCK_K)
+        oi = batch * SMALL.timesteps * w
+        plan = plan_goap_conv_launch(*bs.blocks.shape, bs.padded_k, oi)
+        assert plan.strip == 256 and plan.rows_per_thread == 4
+        assert plan.threads == 128 and plan.blocks == oi // 256
+        w //= SMALL.pool
+
+
+@pytest.mark.parametrize("k_pad,strip", [(64, 256), (192, 128), (384, 64), (512, 32)])
+def test_goap_conv_plan_narrows_the_strip_as_k_grows(k_pad, strip):
+    plan = plan_goap_conv_launch(2, 2, 8, 32, k_pad, 1 << 20)
+    assert plan.strip == strip
+    assert plan.smem_bytes <= MAX_SMEM
+
+
+def test_goap_conv_plan_covers_narrow_oi_and_picks_rows_per_thread():
+    assert plan_goap_conv_launch(1, 1, 8, 32, 32, 10).strip == 16
+    assert plan_goap_conv_launch(1, 1, 8, 32, 32, 1).strip == 4
+    assert plan_goap_conv_launch(1, 1, 8, 32, 32, 100).strip == 128
+    for bo, rb in ((16, 8), (8, 4), (4, 4), (6, 2), (3, 1)):
+        assert plan_goap_conv_launch(2, 1, bo, 32, 32, 256).rows_per_thread == rb
+
+
+def test_goap_conv_plan_raises_past_227_kb():
+    # 928 rows of X', twice at the narrowest strip: 237,568 bytes
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_goap_conv_launch(1, 1, 8, 32, 928, 100)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_goap_conv_launch(4, 7, 8, 32, 1792, 100)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_goap_conv_launch(2, 2, 8, 32, 192, 4096, strip=512)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        plan_goap_conv_launch(2, 2, 8, 32, 192, 4096, strip=30)
+    with pytest.raises(ValueError, match="rows_per_thread"):
+        plan_goap_conv_launch(2, 2, 8, 32, 192, 4096, rows_per_thread=3)
+    # just under the limit still plans: 230,404 bytes
+    assert plan_goap_conv_launch(1, 1, 8, 32, 896, 100).smem_bytes == 230_404
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((512, 1024, 128), FCLaunch(16, 32, 128, 49664, (32, 4))),   # paper FC1
+    ((512, 128, 11), FCLaunch(16, 16, 64, 33280, (32, 1))),      # paper FC2
+    ((32, 64, 16), FCLaunch(16, 16, 64, 33280, (2, 1))),         # SMALL FC1
+    ((32, 16, 5), FCLaunch(16, 8, 32, 25088, (2, 1))),           # SMALL FC2
+    ((1, 1, 1), FCLaunch(32, 4, 32, 37888, (1, 1))),
+    ((70_000, 1024, 128), FCLaunch(16, 32, 128, 49664, (4375, 4))),
+], ids=["paper_fc1", "paper_fc2", "small_fc1", "small_fc2", "tiny", "big_batch"])
+def test_wm_fc_plan(shape, want):
+    plan = plan_wm_fc_launch(*shape)
+    assert plan == want
+    b, din, dout = shape
+    assert plan.threads == plan.rows * plan.out_tile // 4
+    # two chunks of W and of the spikes (rows padded by 4 floats)
+    assert plan.smem_bytes == 8 * CHUNK * (plan.out_tile + plan.rows) + 32 * plan.rows
+    assert plan.grid[0] * plan.rows >= b and plan.grid[1] * plan.out_tile >= dout
+
+
+def test_wm_fc_plan_raises_where_the_card_would_refuse():
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_wm_fc_launch(512, 1024, 1, rows=256)       # 274,432 bytes
+    with pytest.raises(ValueError, match="warps"):
+        plan_wm_fc_launch(512, 1024, 128, rows=2)
+    with pytest.raises(ValueError, match="out_tile"):
+        plan_wm_fc_launch(512, 1024, 128, out_tile=24)
+    with pytest.raises(ValueError, match="grid"):
+        plan_wm_fc_launch(4, 32, 32 * 65_536, rows=16)
 
 
 @pytest.mark.parametrize("tt,n", [(1, 16), (4, 128), (8, 200), (3, 1030), (16, 7)])
