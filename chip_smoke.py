@@ -13,7 +13,8 @@ file; exits non-zero without them.  In order, it
 4. holds every kernel against its plain PyTorch version on the card, at
    the shapes the served paper model gives it (``SNNConfig()``, masks at
    density 0.5, batch 64): logits and currents within 1e-5, spikes and
-   counters exactly.  The per-layer kernels are checked on every call the
+   counters exactly; the whole-network kernel's logits bit for bit, at
+   batch 64 in both input modes and at batch 1.  The per-layer kernels are checked on every call the
    plan's layer-by-layer path makes, on the operands that path gives them,
    and the conv and FC kernels must also equal an in-order eager version
    of their arithmetic bit for bit;
@@ -27,7 +28,9 @@ file; exits non-zero without them.  In order, it
    card; the layer-by-layer logits must equal the fused kernel's exactly
    and give the ``goap`` backend's predictions;
 6. times each kernel's device time (``ms``) and that of the one PyTorch
-   call that computes the same function (``library_ms``) the same way: 20
+   call that computes the same function (``library_ms``) the same way (the
+   whole-network kernel also at batch 1, ``ms_batch1``, each beside the
+   thread-block-cluster launch the planner chose, ``plan``): 20
    back-to-back calls captured into one CUDA graph, replayed 10 times
    between two CUDA events, the median replay divided by 20; beside them
    a single
@@ -157,19 +160,25 @@ def check_kernels(plan, iq, frames_b, timers):
     analog = normalize_iq(iq)
     rows = []
 
-    # -- stream_fused_forward, both input modes ------------------------------
+    # -- stream_fused_forward, both input modes, at the served batch and at
+    #    batch 1 (the lone-request bucket), each with the planner's launch --
     chk = Check("stream_fused_forward")
     work = {}
-    for encode, x in ((False, frames_b), (True, analog)):
+    for encode, x in ((False, frames_b), (True, analog), (False, frames_b[:1])):
         got_l, got_a = stream_fused_forward(stack, x, encode=encode)
         want_l, want_a = stream_fused_forward_ref(
-            stack, x, encode=encode, work=None if encode else work)
+            stack, x, encode=encode,
+            work=work if x is frames_b and not encode else None)
         torch.cuda.synchronize()
-        chk.close(got_l, want_l, ATOL, f"logits encode={encode}")
-        chk.close(got_a, want_a, 0.0, f"conv_accs encode={encode}")
+        what = f"encode={encode} batch {x.shape[0]}"
+        chk.close(got_l, want_l, ATOL, f"logits {what}")
+        chk.close(got_a, want_a, 0.0, f"conv_accs {what}")
         n_same = int((got_l == want_l).all(-1).sum())
-        print(f"  stream_fused_forward encode={encode}: {n_same}/{x.shape[0]} "
+        print(f"  stream_fused_forward {what}: {n_same}/{x.shape[0]} "
               "samples with bit-equal logits")
+        if n_same != x.shape[0]:
+            raise AssertionError(f"stream_fused_forward {what}: logits not "
+                                 "bit-equal to the plain version")
     operands = [frames_b]
     for layer in stack.layers:
         for f in ("w_cm", "counts", "lif", "w"):
@@ -178,6 +187,7 @@ def check_kernels(plan, iq, frames_b, timers):
     n_b = nbytes(*operands) + 4 * frames_b.shape[0] * (stack.n_classes + stack.n_convs)
     n_ops = work["conv_adds"] + work["fc_adds"] + 4 * work["lif_updates"]
     b_ms, b_by = bound_ms(n_b, n_ops)
+    one = frames_b[:1]
     rows.append(dict(
         name="stream_fused_forward", route="cuda",
         source="src/repro_torch/csrc/stream_fused.cu",
@@ -186,7 +196,10 @@ def check_kernels(plan, iq, frames_b, timers):
         ms=timers.graph(lambda: stream_fused_forward(stack, frames_b)),
         call_ms=timers.call(lambda: stream_fused_forward(stack, frames_b)),
         plain_ms=timers.call(lambda: stream_fused_forward_ref(stack, frames_b)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        plan=fused_plan(stack, frames_b),
+        ms_batch1=timers.graph(lambda: stream_fused_forward(stack, one)),
+        plan_batch1=fused_plan(stack, one)))
 
     # -- the per-layer kernels, on the plan's layer-by-layer path ----------
     checks, calls = check_per_layer(plan, frames_b)
@@ -212,6 +225,19 @@ def check_kernels(plan, iq, frames_b, timers):
             library_ms=(None if records[0]["library"] is None else
                         total(timers.graph, lambda c: c["library"]))))
     return rows
+
+
+def fused_plan(stack, frames):
+    """The launch the planner gives the whole-network kernel for this batch,
+    and how many such clusters the card holds at once."""
+    from repro_torch.kernels.stream_fused import launch_plan, max_active_clusters
+
+    plan = launch_plan(stack, frames.shape[0], frames.device)
+    return dict(cluster=plan.cluster, threads=plan.threads,
+                smem_bytes=plan.smem_bytes, fc_resident=plan.fc_resident,
+                fc_rows=plan.fc_rows, waves=plan.waves,
+                active_clusters=(max_active_clusters(plan)
+                                 if frames.device.type == "cuda" else None))
 
 
 # per-layer kernel -> its CUDA source's stem
@@ -441,7 +467,8 @@ def run(device, timers: Timers, seed: int = SEED):
         row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "inorder_max_abs_err", "ms", "call_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "plan", "ms_batch1",
+            "plan_batch1")
     return {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
 
 

@@ -36,6 +36,12 @@ from repro_torch.kernels import (
     wm_fc_matmul_inorder,
     wm_fc_matmul_ref,
 )
+from repro_torch.kernels.stream_fused import (
+    CLUSTERS,
+    THREAD_COUNTS,
+    max_active_clusters,
+    plan_stream_fused_launch,
+)
 
 SMALL = SNNConfig(conv_specs=((3, 2, 4), (3, 4, 8)), pool=2,
                   fc_specs=((64, 16), (16, 5)), input_width=32,
@@ -77,6 +83,67 @@ def test_fused_kernel_equals_plain_bit_for_bit(cuda, cfg):
         want = stream_fused_forward_ref(stack, x, encode=encode)
         torch.testing.assert_close(got[0], want[0], atol=0, rtol=0)
         torch.testing.assert_close(got[1], want[1], atol=0, rtol=0)
+
+
+def _fused_inputs(cfg, b, seed, device):
+    """Binary frames, analog frames for encode=True, and non-binary frames
+    (normal values, a third of them 0) for encode=False."""
+    iq = torch.as_tensor(_iq(cfg, b, seed), device=device)
+    frames = sigma_delta_encode_batch(iq, cfg.timesteps)
+    analog = 0.5 * (iq / (iq.abs().amax((-2, -1), keepdim=True) + 1e-8) + 1.0)
+    rng = np.random.default_rng(seed + 1)
+    raw = rng.normal(size=tuple(frames.shape)) * (rng.random(tuple(frames.shape)) < 2 / 3)
+    return ((False, frames), (True, analog),
+            (False, torch.as_tensor(raw.astype(np.float32), device=device)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SMALL, SNNConfig()], ids=["small", "paper"])
+@pytest.mark.parametrize("b", [1, 3, 64, 65, 300])
+def test_fused_kernel_every_cluster_size_equals_plain(cuda, cfg, b):
+    """Every cluster size and thread count the planner can choose, both
+    encode modes and non-binary frames, against the plain version bit for
+    bit; SMALL also with its FC weights streamed from global memory."""
+    plan, _, _ = _plan(cfg, 0, cuda)
+    stack = plan.fused_stack()
+    launches = [plan_stream_fused_launch(stack, b, cluster=c, threads=n)
+                for c in CLUSTERS for n in THREAD_COUNTS]
+    if cfg is SMALL:
+        launches += [plan_stream_fused_launch(stack, b, cluster=c,
+                                              fc_resident=(False, False))
+                     for c in (1, 4)]
+    for encode, x in _fused_inputs(cfg, b, 3, cuda):
+        want = stream_fused_forward_ref(stack, x, encode=encode)
+        for launch in launches:
+            assert max_active_clusters(launch) > 0
+            got = stream_fused_forward(stack, x, encode=encode, plan=launch)
+            torch.cuda.synchronize()
+            what = (f"C={launch.cluster} threads={launch.threads} "
+                    f"resident={launch.fc_resident} encode={encode}")
+            for g, w_ in zip(got, want):
+                torch.testing.assert_close(g, w_, atol=0, rtol=0,
+                                           msg=lambda m: f"{what}: {m}")
+
+
+# a pool of 3 runs the kernel's general pool path (a power of two pools on
+# neighbouring lanes), with the spike-count readout
+POOL3 = SNNConfig(conv_specs=((3, 2, 4), (3, 4, 8)), pool=3,
+                  fc_specs=((32, 16), (16, 5)), input_width=36, timesteps=4,
+                  n_classes=5, readout="spike_count").validate()
+
+
+@pytest.mark.cuda
+def test_fused_kernel_general_pool_equals_plain(cuda):
+    plan, _, _ = _plan(POOL3, 1, cuda)
+    stack = plan.fused_stack()
+    for encode, x in _fused_inputs(POOL3, 3, 5, cuda):
+        want = stream_fused_forward_ref(stack, x, encode=encode)
+        for c in CLUSTERS:
+            got = stream_fused_forward(stack, x, encode=encode,
+                                       plan=plan_stream_fused_launch(stack, 3, cluster=c))
+            for g, w_ in zip(got, want):
+                torch.testing.assert_close(g, w_, atol=0, rtol=0,
+                                           msg=lambda m: f"C={c} encode={encode}: {m}")
 
 
 @pytest.mark.cuda

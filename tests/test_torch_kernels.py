@@ -6,13 +6,15 @@ and logits within 1e-5, spikes and counters exactly equal.  The CUDA
 kernels themselves are held to their plain versions on the card by
 ``tests/test_torch_cuda.py``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
-from _torch_parity import SMALL, SMALL_REF, setup, spike_frames, t
+from _torch_parity import PAPER, PAPER_REF, SMALL, SMALL_REF, setup, spike_frames, t
 from repro.api import compile_plan as ref_compile_plan, compile_snn as ref_compile_snn
 from repro.core.encoder import sigma_delta_encode as ref_sd_encode
 from repro.core.lif import init_lif_params as ref_init_lif
@@ -41,6 +43,17 @@ from repro_torch.kernels import (
     wm_fc_op,
 )
 from repro_torch.kernels.goap_conv import MAX_SMEM, ConvLaunch, plan_goap_conv_launch
+from repro_torch.kernels.stream_fused import (
+    CLUSTERS,
+    FusedConv,
+    FusedFC,
+    FusedPool,
+    conv_weight_lists,
+    counter_map,
+    plan_stream_fused_launch,
+    split_outputs,
+)
+from repro_torch.serve.batcher import make_buckets
 from repro_torch.kernels.wm_fc import CHUNK, FCLaunch, plan_wm_fc_launch
 
 RNG = np.random.default_rng(0)
@@ -346,3 +359,152 @@ def test_stream_fused_rejects_mismatched_frames():
     with pytest.raises(TypeError, match="float32"):
         stream_fused_forward(stack, torch.zeros(1, SMALL.timesteps, 2, 32,
                                                 dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# stream_fused_forward: launch planning and operand packing of the kernel
+# ---------------------------------------------------------------------------
+
+BUCKETS = make_buckets(64)      # the serving bucket ladder, 1 .. 64
+
+
+def _port_stack(cfg, seed=0):
+    _, _, tparams, tmasks = setup({"small": SMALL_REF, "paper": PAPER_REF}[cfg],
+                                  seed, 0.5)
+    port_cfg = {"small": SMALL, "paper": PAPER}[cfg]
+    return compile_plan(compile_snn(port_cfg), tparams, masks=tmasks,
+                        assignment="cuda_fused", device="cpu").fused_stack()
+
+
+@pytest.mark.parametrize("cfg", ["small", "paper"])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_fused_plan_gives_every_output_to_one_cta(cfg, cluster):
+    stack = _port_stack(cfg)
+    weighted = [l for l in stack.layers if isinstance(l, (FusedConv, FusedFC))]
+    for b in BUCKETS:
+        plan = plan_stream_fused_launch(stack, b, cluster=cluster)
+        assert plan.cluster == cluster and plan.smem_bytes <= 232_448
+        assert len(plan.owned) == len(weighted)
+        for layer, owned in zip(weighted, plan.owned):
+            n = layer.oc if isinstance(layer, FusedConv) else layer.w.shape[1]
+            assert len(owned) == cluster
+            got = [o for start, stop in owned for o in range(start, stop)]
+            assert got == list(range(n))       # each output once, in CTA order
+        assert plan.waves == -(-b // (plan.ctas_per_sm * 132 // cluster))
+        assert plan.threads * plan.ctas_per_sm <= 2048
+        # regions are 16-byte aligned, disjoint and inside the CTA's memory
+        spans = sorted((off, off + words) for _, off, words in plan.layout)
+        assert all(off % 4 == 0 for off, _ in spans)
+        assert all(a[1] <= b_[0] for a, b_ in zip(spans, spans[1:]))
+        assert 4 * spans[-1][1] == plan.smem_bytes
+
+
+def test_fused_plan_on_the_paper_model_keeps_fc1_resident_and_raises_past_the_limit():
+    stack = _port_stack("paper")
+    # batch 64 in one wave of 2-CTA clusters, FC1 streamed; a lone request
+    # gets the largest cluster that keeps FC1 resident
+    plan = plan_stream_fused_launch(stack, 64)
+    assert (plan.cluster, plan.waves, plan.fc_resident) == (2, 1, (False, True))
+    # FC1: a staging area of 256 rows for each timestep's active rows past
+    # the resident ones, and as many resident rows as fit beside it (a
+    # multiple of 32); FC2 all resident
+    rows = plan.fc_rows[0]
+    assert plan.fc_staged == (256, 0)
+    assert 0 < rows < 1024 - 256 and rows % 32 == 0 and plan.fc_rows[1] == 128
+    assert plan.smem_bytes <= 232_448 < plan.smem_bytes + 32 * 4 * 64
+    # forced residency: all rows or none, nothing staged
+    assert plan_stream_fused_launch(stack, 64, cluster=2,
+                                    fc_resident=(False, True)).fc_staged == (0, 0)
+    plan = plan_stream_fused_launch(stack, 1)
+    assert all(plan.fc_resident) and plan.cluster == 8
+    # the card's own occupancy decides the waves
+    one = plan_stream_fused_launch(stack, 64, active_clusters=lambda c, t, m: 64)
+    assert one.waves == 1 and one.cluster == 8
+    assert plan_stream_fused_launch(stack, 64, cluster=1).fc_resident == (False, True)
+    assert plan_stream_fused_launch(stack, 64, cluster=4).fc_resident == (True, True)
+    with pytest.raises(ValueError, match="232448|shared memory"):
+        plan_stream_fused_launch(stack, 64, cluster=1, fc_resident=(True, True))
+    with pytest.raises(ValueError, match="cluster"):
+        plan_stream_fused_launch(stack, 64, cluster=3)
+    with pytest.raises(ValueError, match="fc_resident"):
+        plan_stream_fused_launch(stack, 64, fc_resident=(True,))
+    # FC2's 11 outputs over 8 CTAs: two each, the last CTAs fewer or none
+    fc2 = plan_stream_fused_launch(stack, 64, cluster=8).owned[-1]
+    assert [stop - start for start, stop in fc2] == [2, 2, 2, 2, 2, 1, 0, 0]
+
+
+@pytest.mark.parametrize("cfg", ["small", "paper"])
+@pytest.mark.parametrize("cluster", CLUSTERS)
+def test_conv_weight_lists_are_the_nonzeros_in_ascending_row(cfg, cluster):
+    stack = _port_stack(cfg)
+    width = stack.in_width
+    for layer in stack.layers:
+        if isinstance(layer, FusedPool):
+            width //= layer.pool
+        if not isinstance(layer, FusedConv):
+            continue
+        entries, rowptr = conv_weight_lists(layer, width, cluster)
+        wp = width + layer.kw - 1
+        for q, (start, stop) in enumerate(split_outputs(layer.oc, cluster)):
+            assert rowptr[q, 0] == 0 and (np.diff(rowptr[q]) % 4 == 0).all()
+            for cl, ch in enumerate(range(start, stop)):
+                e = entries[q, rowptr[q, cl]:rowptr[q, cl + 1]]
+                w, off = e[:, 0], e[:, 1].view(np.int32)
+                nz = np.flatnonzero(layer.w_cm[ch])
+                n = len(nz)
+                np.testing.assert_array_equal(w[:n], layer.w_cm[ch, nz])
+                np.testing.assert_array_equal(off[:n], (nz % layer.ic) * wp + nz // layer.ic)
+                assert (w[n:] == 0).all() and (off[n:] == 0).all() and len(w) - n < 4
+            assert (rowptr[q, stop - start:] == rowptr[q, stop - start]).all()
+
+
+@pytest.mark.parametrize("cfg", ["small", "paper"])
+def test_counter_map_equals_the_row_sum_counter(cfg):
+    stack = _port_stack(cfg)
+    rng = np.random.default_rng(5)
+    width = stack.in_width
+    for layer in stack.layers:
+        if isinstance(layer, FusedPool):
+            width //= layer.pool
+        if not isinstance(layer, FusedConv):
+            continue
+        x = (rng.random((layer.ic, width)) < 0.4).astype(np.int64)
+        left = (layer.kw - 1) // 2
+        xp = np.pad(x, ((0, 0), (left, layer.kw - 1 - left)))
+        rows = np.stack([xp[:, ci:ci + width].sum(-1) for ci in range(layer.kw)])
+        want = int((rows.reshape(-1) * layer.counts[0].astype(np.int64)).sum())
+        assert int((x * counter_map(layer, width)).sum()) == want
+
+
+def test_fused_stages_reject_what_the_kernel_does_not_run():
+    stack = _port_stack("small")
+    conv, pool, conv2, pool2, fc1, fc2, readout = stack.layers
+    for layers, match in (((conv, pool, conv2, pool2, fc1, fc2), "no readout"),
+                          ((conv, pool, conv2, pool2, fc1, readout, fc2), "last"),
+                          ((pool, conv, conv2, pool2, fc1, fc2, readout), "follow a conv"),
+                          ((conv, pool, conv2, pool2, readout), "follow an FC")):
+        bad = dataclasses.replace(stack, layers=layers, _packed={})
+        with pytest.raises(ValueError, match=match):
+            plan_stream_fused_launch(bad, 1)
+
+
+def test_stream_fused_plain_counts_non_binary_rows_in_ascending_position():
+    """Non-binary frames: each X' row is summed in ascending position in f32
+    and truncated, the kernel's order (binary frames sum exactly in any)."""
+    stack = _port_stack("small")
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, SMALL.timesteps, 2, SMALL.input_width)).astype(np.float32)
+    _, accs = stream_fused_forward(stack, t(x))
+    layer = stack.layers[0]
+    left = (layer.kw - 1) // 2
+    want = np.zeros(2, np.int64)
+    for b in range(2):
+        for step in range(SMALL.timesteps):
+            xp = np.pad(x[b, step], ((0, 0), (left, layer.kw - 1 - left)))
+            for r in range(layer.kw * layer.ic):
+                ci, ic = divmod(r, layer.ic)
+                s = np.float32(0)
+                for p in range(SMALL.input_width):
+                    s = np.float32(s + xp[ic, ci + p])
+                want[b] += int(layer.counts[0, r]) * int(np.trunc(s))
+    np.testing.assert_array_equal(accs[:, 0].numpy(), want.astype(np.float32))
