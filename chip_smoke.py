@@ -39,7 +39,24 @@ file; exits non-zero without them.  In order, it
    served batch's step (host to host) into its Σ-Δ encode and its fused
    kernel, and times one layer-by-layer batch host to host beside the
    sum of its kernels' ``ms``;
-7. prints one JSON line of per-kernel results, and last
+7. drives the paper's measurement plane at the same width, each path
+   with the launch counts set to 0 just before it and read just after:
+   - ``stream``: the Algorithm-2 interpreter (plain torch, no kernel) on
+     the 64 frames; its per-conv counters must equal the whole-network
+     kernel's ``conv_accs`` exactly, its logits the same backend's on the
+     CPU within 1e-5, its predictions the kernel's; prints the batch's
+     host-to-host ms;
+   - ``gauges``: an ``AsyncAMCServeEngine(backend="cuda_fused")`` with
+     its live Tables I/III gauges (the default) serves the 256 requests;
+     every layer's ``repro_activity_accumulations_total`` must equal the
+     ``stream`` counters summed over the same real frames, and the Table
+     I schedule gauges the ``stream`` backend's static counts; prints
+     the served step's ms with gauges on and off;
+   - ``fixed``: the integer tier serves 64 requests through
+     ``backend="fixed"`` with LSQ step sizes at 16 and 8 bits; the
+     served step's int32 logits must be bit-equal to the numpy
+     ``GoldenNet.forward_iq`` on the same I/Q; prints the step's ms;
+8. prints one JSON line of per-kernel results, and last
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -469,7 +486,190 @@ def run(device, timers: Timers, seed: int = SEED):
             "max_abs_err", "inorder_max_abs_err", "ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "plan", "ms_batch1",
             "plan_batch1")
-    return {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
+    result = {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
+
+    print("phase: stream")
+    stream_plan = run_stream_phase(program, params, masks, plan, frames_b,
+                                   device, timers)
+    print("phase: gauges")
+    run_gauges_phase(params, masks, cfg, iq, preds, stream_plan, device, timers)
+    print("phase: fixed")
+    run_fixed_phase(params, masks, cfg, iq, device, timers)
+    return result
+
+
+def run_stream_phase(program, params, masks, plan, frames_b, device, timers):
+    """The ``stream`` backend on the card: counters equal to the fused
+    kernel's ``conv_accs``, logits to the CPU run's, predictions to the
+    kernel's.  Returns the stream plan."""
+    import torch
+
+    from repro_torch.api import compile_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    stream = compile_plan(program, params, masks=masks, assignment="stream",
+                          device=device)
+    reset_launch_counts()
+    logits, accs = stream.batch_counters(frames_b)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  stream path: one batch of {frames_b.shape[0]}; launches {counts}")
+    expect_launches(counts, set(), "stream path")
+    fused_logits, conv_accs = plan.batch_counters(frames_b)
+    for name, acc in accs.items():
+        if not torch.equal(acc, conv_accs[name]):
+            raise AssertionError(f"stream counters of {name} differ from the "
+                                 "fused kernel's conv_accs")
+    cpu = compile_plan(program, params, masks=masks, assignment="stream",
+                       device="cpu")
+    cpu_logits, cpu_accs = cpu.batch_counters(frames_b.cpu())
+    err = float((logits.cpu() - cpu_logits).abs().max())
+    n_pred = int((logits.argmax(-1) != fused_logits.argmax(-1)).sum())
+    same_cpu = all(torch.equal(accs[n].cpu(), cpu_accs[n]) for n in accs)
+    print(f"  stream counters equal the fused kernel's conv_accs on "
+          f"{len(accs)} convs x {frames_b.shape[0]} frames; totals "
+          f"{ {n: float(a.double().sum()) for n, a in accs.items()} }")
+    print(f"  stream logits vs the CPU stream run: max |err| {err:.3e} (atol "
+          f"{ATOL}); counters equal: {same_cpu}; predictions vs cuda_fused: "
+          f"{n_pred} of {frames_b.shape[0]} differ")
+    if err > ATOL or not same_cpu or n_pred:
+        raise AssertionError("the stream backend on the card disagrees with "
+                             "its CPU run or the fused kernel")
+    line = {"batch": frames_b.shape[0],
+            "step_ms": timers.host(lambda: stream.batch_counters(frames_b)),
+            "slots_per_timestep": stream_slots(params, masks)}
+    print(f"stream_phase {json.dumps(line)}")
+    return stream
+
+
+def stream_slots(params, masks) -> int:
+    """Slot steps one timestep of the stream interpreter walks (all convs):
+    the longest output channel's schedule entries, per conv."""
+    from repro_torch.core.saocds import channel_slots
+    from repro_torch.core.sparse_format import build_schedule, coo_from_dense
+
+    total = 0
+    for layer, mask in zip(params["conv"], masks["conv"]):
+        coo = coo_from_dense((layer["w"] * mask).numpy())
+        total += channel_slots(build_schedule(coo), coo.oc).n_slots
+    return total
+
+
+def run_gauges_phase(params, masks, cfg, iq, want_preds, stream, device, timers):
+    """The served path with live gauges: the registry's totals equal the
+    ``stream`` counters over the real frames."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import metrics
+    from repro_torch.obs.activity import static_schedule_counts
+
+    registry = metrics.MetricsRegistry()
+    old = metrics.set_default_registry(registry)
+    try:
+        reset_launch_counts()
+        with AsyncAMCServeEngine(params, cfg, masks, backend="cuda_fused",
+                                 max_batch=BATCH, device=device,
+                                 name="gauges") as engine:
+            futures = [engine.submit(frame) for frame in iq]
+            preds = np.array([f.result(timeout=600) for f in futures])
+            padded = engine.stats.padded_frames
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            print(f"  gauged served path: {len(preds)} requests, {padded} "
+                  f"padded rows; launches {counts}")
+            expect_launches(counts, {"stream_fused_forward"},
+                            "gauged served path")
+            # the served step with gauges on and off, in turns (on, off,
+            # off, on) on two engines bound to the same weights
+            iq_b = iq[:BATCH]
+            with AsyncAMCServeEngine(params, cfg, masks, backend="cuda_fused",
+                                     max_batch=BATCH, device=device,
+                                     name="ungauged",
+                                     activity_gauges=False) as plain:
+                steps = [(on, timers.call(lambda: e.serve_step(iq_b)))
+                         for on, e in ((True, engine), (False, plain),
+                                       (False, plain), (True, engine))]
+    finally:
+        metrics.set_default_registry(old)
+    gauges_on = [ms for on, ms in steps if on]
+    gauges_off = [ms for on, ms in steps if not on]
+    if not np.array_equal(preds, want_preds):
+        raise AssertionError("the gauged engine's predictions differ")
+    _, accs = stream.batch_counters(sigma_delta_encode_batch(
+        torch.as_tensor(iq, device=device), cfg.timesteps))
+    totals = {}
+    for name, acc in accs.items():
+        want = float(acc.double().sum())
+        got = registry.value("repro_activity_accumulations_total",
+                             engine="gauges", layer=name)
+        totals[name] = got
+        if got != want:
+            raise AssertionError(f"gauge {name}: {got} != stream {want}")
+    frames = registry.value("repro_activity_frames_total", engine="gauges")
+    if frames != len(iq):
+        raise AssertionError(f"gauges counted {frames} frames, not {len(iq)}")
+    schedule = static_schedule_counts(stream)
+    for layer, table in schedule.items():
+        for key, val in table.items():
+            got = registry.value("repro_activity_schedule", layer=layer,
+                                 counter=key)
+            if got != val:
+                raise AssertionError(f"schedule gauge {layer}.{key}: {got} "
+                                     f"!= stream {val}")
+    print(f"  gauges equal the stream counters over {len(iq)} real frames: "
+          f"{totals}; Table I gauges equal: {schedule}")
+    print("gauges_phase " + json.dumps({
+        "requests": len(iq), "padded": padded, "accumulations_total": totals,
+        "step_ms_gauges_on": gauges_on, "step_ms_gauges_off": gauges_off}))
+
+
+def run_fixed_phase(params, masks, cfg, iq, device, timers):
+    """The integer tier served with LSQ step sizes at 16 and 8 bits; the
+    served step's int32 logits bit-equal to the numpy golden."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.fixed import FixedQuantFn, build_golden
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.lsq import init_lsq_scales
+
+    iq_b = iq[:BATCH]
+    line = {"requests": len(iq_b)}
+    for bits in (16, 8):
+        scales = init_lsq_scales(params, bits)
+        reset_launch_counts()
+        with AsyncAMCServeEngine(params, cfg, masks, backend="fixed",
+                                 max_batch=BATCH, lsq_scales=scales,
+                                 quant_bits=bits, device=device,
+                                 name=f"fixed{bits}") as engine:
+            futures = [engine.submit(frame) for frame in iq_b]
+            preds = np.array([f.result(timeout=600) for f in futures])
+            logits = engine.step(iq_b)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            step_ms = timers.call(lambda: engine.step(iq_b))
+        print(f"  fixed path, {bits} bits: {len(preds)} requests; launches "
+              f"{counts}")
+        expect_launches(counts, set(), f"fixed path ({bits} bits)")
+        golden = build_golden(cfg, params, masks=masks,
+                              quant_fn=FixedQuantFn(scales, bits))
+        want = np.stack([golden.forward_iq(f) for f in iq_b])
+        n_same = int((logits == want).all(-1).sum())
+        print(f"  fixed {bits} bits: int32 logits bit-equal to the golden "
+              f"for {n_same} of {len(iq_b)} frames (max |logit| "
+              f"{int(np.abs(want).max())}); served predictions equal the "
+              f"golden's: {bool((preds == want.argmax(-1)).all())}")
+        if logits.dtype != np.int32 or n_same != len(iq_b) or \
+                not (preds == want.argmax(-1)).all():
+            raise AssertionError(f"fixed tier at {bits} bits disagrees with "
+                                 "the golden")
+        line[f"step_ms_{bits}"] = step_ms
+    print(f"fixed_phase {json.dumps(line)}")
 
 
 def main() -> int:

@@ -12,7 +12,10 @@
 
 Backends: ``dense``, ``goap`` (plain torch), ``cuda`` and ``cuda_fused``
 (the hand-written kernels; ports of the reference's ``pallas`` and
-``pallas_fused``).  Serving: :class:`AsyncAMCServeEngine`.
+``pallas_fused``), ``stream`` (the Algorithm-2 interpreter with the
+Tables I/III counters) and ``fixed`` (the integer datapath).  Serving:
+:class:`AsyncAMCServeEngine`, with live activity gauges and LSQ /
+fixed-point quantized serving.
 """
 from __future__ import annotations
 

@@ -9,13 +9,16 @@ the reference's.  Conv kernels are stored in merged-row-index COO:
 
 sorted in output-channel order.  ``build_schedule`` precomputes the
 Algorithm-2 iteration schedule (compute / extra / empty slots), whose
-static counts the fused kernel reports; ``block_sparse_from_dense``
-re-blocks the kernel into the static block-sparse tiles the ``cuda``
-conv kernel walks.
+static counts the fused kernel reports and the ``stream`` backend
+executes; ``block_sparse_from_dense`` re-blocks the kernel into the static
+block-sparse tiles the ``cuda`` conv kernel walks.  FC layers carry a
+1-bit weight mask (:class:`WeightMask`); the bit-width helpers give the
+storage costs of paper Table II.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 
@@ -23,10 +26,17 @@ __all__ = [
     "CooKernel",
     "coo_from_dense",
     "coo_to_dense",
+    "coo_bit_widths",
+    "coo_storage_bits",
+    "dense_storage_bits",
+    "break_even_density",
     "Schedule",
     "build_schedule",
+    "WeightMask",
+    "weight_mask_from_dense",
     "BlockSparseKernel",
     "block_sparse_from_dense",
+    "block_sparse_to_dense",
 ]
 
 # Iteration kinds in the static schedule (paper Algorithm 2).
@@ -50,6 +60,17 @@ class CooKernel:
     def nnz(self) -> int:
         return int(self.data.shape[0])
 
+    @property
+    def density(self) -> float:
+        total = self.kw * self.ic * self.oc
+        return self.nnz / total if total else 0.0
+
+    def oc_of(self, i: int) -> int:
+        return int(self.row_idx[i]) // self.ic  # eq. (2)
+
+    def ic_of(self, i: int) -> int:
+        return int(self.row_idx[i]) % self.ic   # eq. (1)
+
 
 def coo_from_dense(kernel: np.ndarray) -> CooKernel:
     """kernel: (KW, IC, OC) dense -> COO sorted by (oc, ic, ci)."""
@@ -71,6 +92,29 @@ def coo_to_dense(coo: CooKernel) -> np.ndarray:
     ic = coo.row_idx % coo.ic
     out[coo.col_idx, ic, oc] = coo.data
     return out
+
+
+def coo_bit_widths(kw: int, ic: int, oc: int, data_bits: int = 16) -> Tuple[int, int, int]:
+    """(W.D, W.RI, W.CI) bit widths as in paper Table II."""
+    ri_bits = max(1, int(np.ceil(np.log2(ic * oc))))
+    ci_bits = max(1, int(np.ceil(np.log2(kw))))
+    return data_bits, ri_bits, ci_bits
+
+
+def dense_storage_bits(kw: int, ic: int, oc: int, data_bits: int = 16) -> int:
+    return kw * ic * oc * data_bits
+
+
+def coo_storage_bits(kw: int, ic: int, oc: int, density: float,
+                     data_bits: int = 16) -> float:
+    d, ri, ci = coo_bit_widths(kw, ic, oc, data_bits)
+    return (d + ri + ci) * kw * ic * oc * density
+
+
+def break_even_density(kw: int, ic: int, oc: int, data_bits: int = 16) -> float:
+    """Density below which COO is more bit-efficient than dense (Table II)."""
+    d, ri, ci = coo_bit_widths(kw, ic, oc, data_bits)
+    return data_bits / (d + ri + ci)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +207,33 @@ def build_schedule(coo: CooKernel) -> Schedule:
 
 
 # ---------------------------------------------------------------------------
+# Weight mask (paper §III-B, Fig. 2) — FC layers.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WeightMask:
+    """1-bit-per-weight mask for an FC weight matrix (IN, OUT)."""
+
+    weights: np.ndarray  # (IN, OUT) with zeros at masked positions
+    mask: np.ndarray     # (IN, OUT) bool, True where weight != 0
+
+    @property
+    def density(self) -> float:
+        return float(self.mask.mean())
+
+    def fetch_mask(self, spikes: np.ndarray) -> np.ndarray:
+        """FM = IFM AND WM: which weights must actually be fetched."""
+        s = np.asarray(spikes).astype(bool)
+        return s[..., :, None] & self.mask  # (..., IN, OUT)
+
+
+def weight_mask_from_dense(weights: np.ndarray) -> WeightMask:
+    w = np.asarray(weights)
+    mask = w != 0
+    return WeightMask(weights=w * mask, mask=mask)
+
+
+# ---------------------------------------------------------------------------
 # Static block-sparse layout (the tiles the ``cuda`` conv kernel walks).
 # ---------------------------------------------------------------------------
 
@@ -186,12 +257,25 @@ class BlockSparseKernel:
     block_k: int
 
     @property
+    def n_oc_tiles(self) -> int:
+        return int(self.blocks.shape[0])
+
+    @property
+    def max_tiles(self) -> int:
+        return int(self.blocks.shape[1])
+
+    @property
     def padded_oc(self) -> int:
-        return int(self.blocks.shape[0]) * self.block_oc
+        return self.n_oc_tiles * self.block_oc
 
     @property
     def padded_k(self) -> int:
         return int(-(-self.k // self.block_k)) * self.block_k
+
+    @property
+    def tile_density(self) -> float:
+        total = self.n_oc_tiles * (self.padded_k // self.block_k)
+        return float(self.n_tiles_per_row.sum()) / total if total else 0.0
 
 
 def _flatten_kernel(kernel: np.ndarray) -> np.ndarray:
@@ -229,3 +313,19 @@ def block_sparse_from_dense(
         blocks=blocks, block_cols=block_cols, tile_valid=tile_valid,
         n_tiles_per_row=counts, oc=oc, k=k, kw=kw, ic=ic,
         block_oc=block_oc, block_k=block_k)
+
+
+def block_sparse_to_dense(bs: BlockSparseKernel) -> np.ndarray:
+    """Inverse of ``block_sparse_from_dense`` -> (KW, IC, OC)."""
+    n_k_tiles = bs.padded_k // bs.block_k
+    w = np.zeros((bs.n_oc_tiles, n_k_tiles, bs.block_oc, bs.block_k),
+                 dtype=bs.blocks.dtype)
+    for r in range(bs.n_oc_tiles):
+        for j in range(bs.max_tiles):
+            if bs.tile_valid[r, j]:
+                w[r, bs.block_cols[r, j]] = bs.blocks[r, j]
+    w = w.transpose(0, 2, 1, 3).reshape(bs.n_oc_tiles * bs.block_oc,
+                                        n_k_tiles * bs.block_k)
+    w = w[: bs.oc, : bs.k]  # strip padding
+    # (OC, IC*KW) -> (KW, IC, OC)
+    return w.reshape(bs.oc, bs.ic, bs.kw).transpose(2, 1, 0)

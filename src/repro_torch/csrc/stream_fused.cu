@@ -22,8 +22,9 @@
 // Conv currents: a warp owns one channel x 32*P output positions (lane l
 // takes positions l, l + 32, ...), so the warp shares the channel's weight
 // list, read as broadcasts, and each lane keeps P independent chains.  The
-// list holds the channel's nonzero weights only, in ascending shift-buffer
-// row r = ci*IC + ic (the GOAP schedule of the fixed kernel), each with the
+// list holds the channel's nonzero weights only, in ascending ic-major
+// shift-buffer row k = ic*KW + ci (the order of the COO schedule, of the
+// layer-by-layer conv and of the stream interpreter), each with the
 // offset into the zero-padded input rows at which position 0 reads; the
 // shift buffer X' is never built.  FC currents: a thread owns an output and
 // walks the compacted list of active inputs (the weight-mask fetch FM = IFM
@@ -32,7 +33,7 @@
 // past them, each timestep's active rows are copied into a staging area
 // while the resident rows are walked, and any beyond it read from L2.
 //
-// Exactness.  Every current is a sequential sum in ascending r (convs) or
+// Exactness.  Every current is a sequential sum in ascending k (convs) or
 // ascending input index (FCs), as in the plain version
 // (stream_fused_forward_ref), so the two agree bit for bit on the card.
 // Inside the network every value a layer reads is a spike, 0 or 1 (Σ-Δ
@@ -177,15 +178,16 @@ __device__ __forceinline__ Entries load_entries(unsigned laddr, int k) {
 }
 
 // A conv current at position p over an input that is not all {0, 1}: the
-// dense weight row in ascending r, multiply and add rounded separately,
-// skipping x == 0 (kept out of line: frames of this kind are rare).
+// dense weight row in ascending k = ic*KW + ci, multiply and add rounded
+// separately, skipping x == 0 (kept out of line: frames of this kind are
+// rare).  The row itself is stored ci-major (column ci*IC + ic).
 __device__ __noinline__ float conv_dense(const float* wrow, const float* x,
                                          int kw, int ic, int wp, int p) {
     float a = 0.0f;
 #pragma unroll 1
-    for (int ci = 0; ci < kw; ++ci)
+    for (int icc = 0; icc < ic; ++icc)
 #pragma unroll 1
-        for (int icc = 0; icc < ic; ++icc) {
+        for (int ci = 0; ci < kw; ++ci) {
             const float xv = x[icc * wp + ci + p];
             if (xv != 0.0f) a = __fadd_rn(a, __fmul_rn(wrow[ci * ic + icc], xv));
         }

@@ -22,9 +22,11 @@ operands from the same numpy arrays as the reference.
 ``stream_fused_forward`` launches the kernel for a CUDA tensor and runs
 :func:`stream_fused_forward_ref`, the plain PyTorch version, for a CPU
 tensor.  The plain version loops over T and the layers and adds every
-current in the kernel's order (ascending shift-buffer row, ci-major
-``r = ci*IC + ic``, products and sums rounded separately), so on the card
-the two agree bit for bit.
+current in the kernel's order (ascending ic-major shift-buffer row
+``k = ic*KW + ci``, products and sums rounded separately), so on the card
+the two agree bit for bit.  It is also the order of the layer-by-layer
+conv's in-order sum and of the ``stream`` interpreter's schedule, so the
+three fire the same spikes and count the same events.
 
 The host helpers (``fused_conv_info``, ``fused_fc_info``,
 ``fused_stack_of``, ``fused_counters``) build the same numpy operands as
@@ -322,9 +324,11 @@ def stream_fused_forward_ref(stack: FusedStack, frames: torch.Tensor, *,
                 # X' row sums, ci-major r = ci*IC + ic
                 rows = _row_sums(xp, layer.kw, w).reshape(b, -1).to(torch.long)
                 accs[:, conv_i] += (rows * counts).sum(-1)
+                # currents in ascending ic-major row k = ic*KW + ci: the
+                # order of the COO schedule and the layer-by-layer conv
                 cur = torch.zeros((b, layer.oc, w), dtype=f32, device=dev)
-                for ci in range(layer.kw):
-                    for ic in range(layer.ic):
+                for ic in range(layer.ic):
+                    for ci in range(layer.kw):
                         r = ci * layer.ic + ic
                         cur = cur + (w_cm[:, r, None]
                                      * xp[:, ic, None, ci:ci + w])
@@ -447,9 +451,11 @@ def split_outputs(n: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
 
 def conv_weight_lists(layer: FusedConv, width: int, cluster: int):
     """Each CTA's nonzero conv weights, channel by channel, in ascending
-    shift-buffer row ``r = ci*IC + ic`` (the GOAP schedule of the fixed
-    kernel).  Returns ``(entries (C, L, 2) float32, rowptr (C, per+1)
-    int32)``: entry = (weight, offset) with the int32 offset ``ic * (width
+    ic-major shift-buffer row ``k = ic*KW + ci`` (the order of the COO
+    schedule, of the layer-by-layer conv's in-order sum and of the
+    ``stream`` interpreter, so that all of them fire the same spikes).
+    Returns ``(entries (C, L, 2) float32, rowptr (C, per+1) int32)``:
+    entry = (weight, offset) with the int32 offset ``ic * (width
     + kw - 1) + ci`` stored in the float's bits, the offset into the
     zero-padded input rows at which output position 0 reads; each
     channel's list padded with (0, 0) to a multiple of 4 entries, and 8
@@ -463,7 +469,9 @@ def conv_weight_lists(layer: FusedConv, width: int, cluster: int):
     for start, stop in split_outputs(layer.oc, cluster):
         ws, offs, ptr = [], [], [0]
         for ch in range(start, stop):
-            nz = np.flatnonzero(layer.w_cm[ch])
+            nz = np.flatnonzero(layer.w_cm[ch])     # ci-major columns r
+            nz = nz[np.argsort((nz % layer.ic) * layer.kw + nz // layer.ic,
+                               kind="stable")]
             pad = -len(nz) % LIST_GROUP
             ws += [layer.w_cm[ch, nz], np.zeros(pad, np.float32)]
             offs += [offsets[nz], np.zeros(pad, np.int32)]

@@ -18,10 +18,16 @@ cuda          pallas        block-sparse conv kernel, weight-masked FC
 cuda_fused    pallas_fused  the ``cuda`` cells, plus the operands of the
                             whole-network streaming kernel
                             (``kernels/stream_fused.py``)
+stream        stream        the Algorithm-2 schedule interpreter with the
+                            Tables I/III counters (plain torch,
+                            ``core/saocds.py``)
+fixed         fixed         integer datapath of the FPGA (``fixed/``,
+                            registered on first use)
 ============  ============  ===============================================
 
-The ``stream`` (Algorithm-2 interpreter) and ``fixed`` backends are not
-ported yet.
+Factories take ``quant_fn``: a weight transform (LSQ fake-quantization,
+or the fixed tier's :class:`~repro_torch.fixed.FixedQuantFn`) applied to
+the masked weight before any artifact is derived from it.
 
 Unlike the reference, which writes cells for one sample and ``vmap``s
 them, every per-timestep value here carries a leading batch axis: a conv
@@ -42,7 +48,7 @@ import torch
 
 from repro_torch.core.goap import conv1d_dense_oracle, goap_conv_packed, goap_pack
 from repro_torch.core.lif import LIFParams, lif_step
-from repro_torch.core.saocds import max_pool_spikes, pad_same
+from repro_torch.core.saocds import make_schedule_step, max_pool_spikes, pad_same
 from repro_torch.core.sparse_format import (
     CooKernel,
     block_sparse_from_dense,
@@ -68,6 +74,7 @@ __all__ = [
     "SNNProgram",
     "BoundProgram",
     "compile_snn",
+    "stream_totals",
 ]
 
 KIND_CONV = "conv_lif"
@@ -192,11 +199,23 @@ def _spikes_of(x_t):
 # Backend registry.
 # ---------------------------------------------------------------------------
 
-# A factory takes (spec, layer_params, *, cfg, mask, artifacts, device) and
-# returns the layer's LayerCell.
+# A factory takes (spec, layer_params, *, cfg, mask, quant_fn, artifacts,
+# device) and returns the layer's LayerCell.
 BackendFactory = Callable[..., LayerCell]
 COMMON = "common"
 _REGISTRY: Dict[Tuple[str, str], BackendFactory] = {}
+
+# Backends in optional subpackages register on first use.
+_LAZY_BACKENDS: Dict[str, str] = {"fixed": "repro_torch.fixed.backend"}
+
+
+def _ensure_registered(name: Optional[str] = None) -> None:
+    import importlib
+
+    for lazy, module in _LAZY_BACKENDS.items():
+        if (name is None or name == lazy) and not any(
+                n == lazy for n, _ in _REGISTRY):
+            importlib.import_module(module)
 
 
 def register_backend(name: str, layer_kind: str, fn: BackendFactory) -> BackendFactory:
@@ -205,11 +224,13 @@ def register_backend(name: str, layer_kind: str, fn: BackendFactory) -> BackendF
 
 
 def available_backends() -> Tuple[str, ...]:
+    _ensure_registered()
     return tuple(sorted({n for n, _ in _REGISTRY if n != COMMON}))
 
 
 def get_backend(name: str, layer_kind: str) -> BackendFactory:
     """Resolve ``(name, layer_kind)``, falling back to the common pool."""
+    _ensure_registered(name)
     if name not in {n for n, _ in _REGISTRY}:
         raise ValueError(f"unknown backend {name!r}; registered backends: "
                          f"{list(available_backends())}")
@@ -242,43 +263,48 @@ def _artifact(artifacts: Optional[dict], key: str, build: Callable[[], Any]):
     return val
 
 
-def effective_weight(layer_params, mask) -> torch.Tensor:
-    """Masked weight (pruned zeros kept in the matrix)."""
+def effective_weight(layer_params, mask, quant_fn=None) -> torch.Tensor:
+    """Masked (pruned zeros kept in the matrix), then quantized weight."""
     w = layer_params["w"]
-    return w if mask is None else w * mask
+    if mask is not None:
+        w = w * mask
+    if quant_fn is not None:
+        w = quant_fn(w)
+    return w
 
 
-def _weight_np(layer_params, mask, artifacts) -> np.ndarray:
+def _weight_np(layer_params, mask, quant_fn, artifacts) -> np.ndarray:
     if artifacts is not None and artifacts.get("w_eff") is not None:
         return artifacts["w_eff"]
-    return effective_weight(layer_params, mask).detach().cpu().numpy()
+    return torch.as_tensor(effective_weight(layer_params, mask, quant_fn)
+                           ).detach().cpu().numpy()
 
 
-def _weight(layer_params, mask, artifacts, device) -> torch.Tensor:
-    return torch.as_tensor(_weight_np(layer_params, mask, artifacts),
+def _weight(layer_params, mask, quant_fn, artifacts, device) -> torch.Tensor:
+    return torch.as_tensor(_weight_np(layer_params, mask, quant_fn, artifacts),
                            dtype=torch.float32, device=device)
 
 
-def _layer_coo(layer_params, mask, artifacts) -> CooKernel:
+def _layer_coo(layer_params, mask, quant_fn, artifacts) -> CooKernel:
     if "coo" in layer_params:
         return layer_params["coo"]
     return _artifact(artifacts, "coo", lambda: coo_from_dense(
-        _weight_np(layer_params, mask, artifacts)))
+        _weight_np(layer_params, mask, quant_fn, artifacts)))
 
 
 # ---------------------------------------------------------------------------
 # Common cells.
 # ---------------------------------------------------------------------------
 
-def _common_maxpool(spec, layer_params, *, cfg, mask=None, artifacts=None,
-                    device=None) -> LayerCell:
+def _common_maxpool(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                    artifacts=None, device=None) -> LayerCell:
     return LayerCell(init_state=lambda x_t: (),
                      step=lambda state, x_t: (state, max_pool_spikes(x_t, spec.pool)),
                      seq=lambda xs: max_pool_spikes(xs, spec.pool))
 
 
-def _common_readout(spec, layer_params, *, cfg, mask=None, artifacts=None,
-                    device=None) -> LayerCell:
+def _common_readout(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                    artifacts=None, device=None) -> LayerCell:
     use_current = spec.mode == "current_sum"
 
     def init_state(x_t):
@@ -329,22 +355,22 @@ def _fc_cell(w: torch.Tensor, lif: LIFParams, current_fn=None) -> LayerCell:
 # dense and goap backends (plain torch).
 # ---------------------------------------------------------------------------
 
-def _dense_conv(spec, layer_params, *, cfg, mask=None, artifacts=None,
-                device=None) -> LayerCell:
-    w = _weight(layer_params, mask, artifacts, device)
+def _dense_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                artifacts=None, device=None) -> LayerCell:
+    w = _weight(layer_params, mask, quant_fn, artifacts, device)
     return _conv_cell(spec.kw, spec.oc, layer_params["lif"].to(device),
                       lambda ifm: conv1d_dense_oracle(ifm, w))
 
 
-def _dense_fc(spec, layer_params, *, cfg, mask=None, artifacts=None,
-              device=None) -> LayerCell:
-    return _fc_cell(_weight(layer_params, mask, artifacts, device),
+def _dense_fc(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+              artifacts=None, device=None) -> LayerCell:
+    return _fc_cell(_weight(layer_params, mask, quant_fn, artifacts, device),
                     layer_params["lif"].to(device))
 
 
-def _goap_conv(spec, layer_params, *, cfg, mask=None, artifacts=None,
-               device=None) -> LayerCell:
-    coo = _layer_coo(layer_params, mask, artifacts)
+def _goap_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+               artifacts=None, device=None) -> LayerCell:
+    coo = _layer_coo(layer_params, mask, quant_fn, artifacts)
     if artifacts is not None and artifacts.get("goap_pack") is not None:
         pack = artifacts["goap_pack"]
     else:
@@ -372,15 +398,15 @@ BLOCK_OC = 8
 BLOCK_K = 32
 
 
-def _cuda_conv(spec, layer_params, *, cfg, mask=None, artifacts=None,
-               device=None) -> LayerCell:
+def _cuda_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+               artifacts=None, device=None) -> LayerCell:
     from repro_torch.kernels.ops import block_sparse_to, goap_conv_op, lif_op
 
     def build_bs():
         if "coo" in layer_params:
             w = coo_to_dense(layer_params["coo"]).astype(np.float32)
         else:
-            w = _weight_np(layer_params, mask, artifacts)
+            w = _weight_np(layer_params, mask, quant_fn, artifacts)
         return block_sparse_from_dense(w, block_oc=BLOCK_OC, block_k=BLOCK_K)
 
     bs = block_sparse_to(_artifact(artifacts, "block_sparse", build_bs), device)
@@ -396,11 +422,11 @@ def _cuda_conv(spec, layer_params, *, cfg, mask=None, artifacts=None,
     return dataclasses.replace(cell, seq=seq)
 
 
-def _cuda_fc(spec, layer_params, *, cfg, mask=None, artifacts=None,
-             device=None) -> LayerCell:
+def _cuda_fc(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+             artifacts=None, device=None) -> LayerCell:
     from repro_torch.kernels.ops import lif_op, wm_fc_op
 
-    w = _weight(layer_params, mask, artifacts, device)
+    w = _weight(layer_params, mask, quant_fn, artifacts, device)
     lif = layer_params["lif"].to(device)
     cell = _fc_cell(w, lif, current_fn=lambda s: wm_fc_op(s, w))
 
@@ -423,31 +449,86 @@ register_backend("cuda", KIND_FC, _cuda_fc)
 # (port of the reference's ``pallas_fused``).
 # ---------------------------------------------------------------------------
 
-def _cuda_fused_conv(spec, layer_params, *, cfg, mask=None, artifacts=None,
-                     device=None) -> LayerCell:
+def _cuda_fused_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                     artifacts=None, device=None) -> LayerCell:
     from repro_torch.kernels.stream_fused import fused_conv_info
 
     cell = _cuda_conv(spec, layer_params, cfg=cfg, mask=mask,
-                      artifacts=artifacts, device=device)
-    coo = _layer_coo(layer_params, mask, artifacts)
+                      quant_fn=quant_fn, artifacts=artifacts, device=device)
+    coo = _layer_coo(layer_params, mask, quant_fn, artifacts)
     sched = _artifact(artifacts, "schedule", lambda: build_schedule(coo))
     return dataclasses.replace(
         cell, fused=fused_conv_info(spec.name, coo, layer_params["lif"], sched))
 
 
-def _cuda_fused_fc(spec, layer_params, *, cfg, mask=None, artifacts=None,
-                   device=None) -> LayerCell:
+def _cuda_fused_fc(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                   artifacts=None, device=None) -> LayerCell:
     from repro_torch.kernels.stream_fused import fused_fc_info
 
     cell = _cuda_fc(spec, layer_params, cfg=cfg, mask=mask,
-                    artifacts=artifacts, device=device)
+                    quant_fn=quant_fn, artifacts=artifacts, device=device)
     return dataclasses.replace(cell, fused=fused_fc_info(
-        spec.name, _weight_np(layer_params, mask, artifacts),
+        spec.name, _weight_np(layer_params, mask, quant_fn, artifacts),
         layer_params["lif"]))
 
 
 register_backend("cuda_fused", KIND_CONV, _cuda_fused_conv)
 register_backend("cuda_fused", KIND_FC, _cuda_fused_fc)
+
+
+# ---------------------------------------------------------------------------
+# stream backend — Algorithm-2 interpreter with the Tables I/III counters.
+# ---------------------------------------------------------------------------
+
+def _stream_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
+                 artifacts=None, device=None) -> LayerCell:
+    coo = _layer_coo(layer_params, mask, quant_fn, artifacts)
+    sched = _artifact(artifacts, "schedule", lambda: build_schedule(coo))
+    one_timestep = make_schedule_step(sched, layer_params["lif"].to(device),
+                                      coo.oc, device=device)
+    static_counts = {
+        "reps_per_timestep": sched.reps,
+        "compute_iters": sched.n_compute,
+        "extra_iters": sched.n_extra,
+        "empty_iters": sched.n_empty,
+    }
+
+    def init_state(x_t):
+        b, w = x_t.shape[0], x_t.shape[-1]
+        return (torch.zeros((b, coo.oc, w), dtype=torch.float32,
+                            device=x_t.device),
+                torch.zeros((b,), dtype=torch.int64, device=x_t.device), 0)
+
+    def step(carry, x_t):
+        v, acc, t = carry
+        v, (out, a) = one_timestep(v, pad_same(_spikes_of(x_t), coo.kw))
+        return (v, acc + a, t + 1), out
+
+    def finalize(carry):
+        # int64 on the device, float32 out as in the reference (exact
+        # below 2**24 events a frame)
+        _, acc, t = carry
+        return {**static_counts, "accumulations": acc.to(torch.float32),
+                "timesteps": t}
+
+    return LayerCell(init_state=init_state, step=step, finalize=finalize)
+
+
+register_backend("stream", KIND_CONV, _stream_conv)
+register_backend("stream", KIND_FC, _dense_fc)  # WM method, see goap above
+
+
+def stream_totals(counters: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Aggregate per-layer stream counters into whole-network totals."""
+    totals = {"compute_iters": 0, "extra_iters": 0, "empty_iters": 0,
+              "reps_per_timestep": 0, "accumulations": 0.0}
+    for counts in counters.values():
+        totals["compute_iters"] += counts["compute_iters"]
+        totals["extra_iters"] += counts["extra_iters"]
+        totals["empty_iters"] += counts["empty_iters"]
+        totals["reps_per_timestep"] += counts["reps_per_timestep"]
+        totals["accumulations"] = totals["accumulations"] + counts["accumulations"]
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -498,23 +579,27 @@ class SNNProgram:
         return cls(cfg=cfg, layers=build_layer_graph(cfg))
 
     def apply(self, params, frames, backend: str = "dense", *, masks=None,
-              return_counters: bool = False, device=None):
+              quant_fn=None, return_counters: bool = False, device=None):
         """One sample (T, IC0, W) -> logits (n_classes,), through a cached
-        plan on ``device`` (the card unless ``device="cpu"``)."""
+        plan on ``device`` (the card unless ``device="cpu"``).
+
+        With ``return_counters=True`` also returns the per-conv-layer
+        counters (the ``stream`` and ``cuda_fused`` backends carry the
+        Tables I/III quantities; the others none)."""
         from repro_torch.plan import compile_plan
 
-        plan = compile_plan(self, params, masks=masks, assignment=backend,
-                            device=device)
+        plan = compile_plan(self, params, masks=masks, quant_fn=quant_fn,
+                            assignment=backend, device=device)
         logits, counters = plan.run_layered(plan.to_device(frames))
         return (logits, counters) if return_counters else logits
 
     def apply_batch(self, params, frames_b, backend: str = "dense", *,
-                    masks=None, device=None) -> torch.Tensor:
+                    masks=None, quant_fn=None, device=None) -> torch.Tensor:
         """(B, T, IC0, W) -> (B, n_classes)."""
         from repro_torch.plan import compile_plan
 
-        plan = compile_plan(self, params, masks=masks, assignment=backend,
-                            device=device)
+        plan = compile_plan(self, params, masks=masks, quant_fn=quant_fn,
+                            assignment=backend, device=device)
         return plan.bound.batch(plan.to_device(frames_b))
 
     @staticmethod

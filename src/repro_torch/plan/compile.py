@@ -10,8 +10,11 @@ backend, effective weight, mask and LIF bytes): a second call with the
 same inputs returns the same plan object from the cache.
 
 ``assignment`` is one backend name or a ``{layer_name: backend}`` map
-(unlisted layers take ``default_backend``).  LSQ/fixed-point ``quant_fn``
-binds are not ported yet.
+(unlisted layers take ``default_backend``).  ``quant_fn`` (LSQ
+fake-quantization or the fixed tier's ``FixedQuantFn``) is applied to
+every weighted layer's masked weight in graph order, once per compile, so
+the digest and every artifact see the quantized weights; pass a fresh
+closure per compile (it counts layers).
 """
 from __future__ import annotations
 
@@ -140,19 +143,38 @@ class ExecutionPlan:
         the layer-by-layer bound path."""
         return self.batch if self.fused_stack() is not None else self.bound.batch
 
+    @property
+    def supports_live_counters(self) -> bool:
+        """True when :meth:`batch_counters` reports per-batch gated
+        accumulation counts (Table III): every conv layer counts in its
+        step, through the whole-network kernel or the ``stream``
+        interpreter."""
+        if self.fused_stack() is not None:
+            return True
+        return all(lp.backend == "stream" for lp in self.layers
+                   if lp.spec.kind == KIND_CONV)
+
     def batch_counters(self, frames_b: torch.Tensor):
-        """(B, T, IC0, W) -> (logits, {conv_name: (B,) accumulations}).
+        """(B, T, IC0, W) -> (logits (B, n_classes), {conv_name: (B,) accs}).
 
-        Counters come from the whole-network kernel; other assignments
-        carry none yet (the ``stream`` backend is not ported)."""
+        The counter-returning twin of :meth:`batch`: the whole-network
+        kernel's ``conv_accs``, or the ``stream`` interpreter's counters.
+        Counts are float32, exact below 2**24 events a frame.  Without
+        :attr:`supports_live_counters` the dict holds only the layers
+        that count (none for ``goap``, ``dense``, ``cuda``, ``fixed``)."""
         stack = self.fused_stack()
-        if stack is None:
-            return self.bound.batch(frames_b), {}
-        from repro_torch.kernels.stream_fused import stream_fused_forward
+        if stack is not None:
+            from repro_torch.kernels.stream_fused import stream_fused_forward
 
-        logits, accs = stream_fused_forward(stack, frames_b)
-        return logits, {name: accs[:, i]
-                        for i, name in enumerate(stack.conv_names)}
+            logits, accs = stream_fused_forward(stack, frames_b)
+            return logits, {name: accs[:, i]
+                            for i, name in enumerate(stack.conv_names)}
+        from repro_torch.plan.streaming import run_streaming_batch
+
+        logits, counters = run_streaming_batch(self, frames_b.transpose(0, 1))
+        return logits, {name: c["accumulations"]
+                        for name, c in counters.items()
+                        if "accumulations" in c}
 
 
 def _resolve_assignment(specs, assignment: Union[str, Mapping[str, str]],
@@ -189,9 +211,6 @@ def compile_plan(
 
     ``device=None`` means the card, and raises when there is none.
     """
-    if quant_fn is not None:
-        raise NotImplementedError("quantized (LSQ / fixed-point) plans are "
-                                  "not ported yet")
     dev = resolve_device(device)
     cache = cache if cache is not None else default_cache()
     specs = program.layers
@@ -212,7 +231,8 @@ def compile_plan(
         w_eff = lkey = None
         if spec.kind in (KIND_CONV, KIND_FC):
             if "coo" not in lp:
-                w_eff = _np(effective_weight(lp, mask)).astype(np.float32)
+                w_eff = _np(effective_weight(lp, mask, quant_fn)
+                            ).astype(np.float32)
             lkey = _layer_key(spec, lp, mask, w_eff)
             h.update(lkey.encode())
             lif = lp["lif"]
@@ -233,8 +253,8 @@ def compile_plan(
                 artifacts["w_eff"] = w_eff
             before = {k for k, v in artifacts.items() if v is not None}
         cell = get_backend(backend, spec.kind)(
-            spec, lp, cfg=program.cfg, mask=mask, artifacts=artifacts,
-            device=dev)
+            spec, lp, cfg=program.cfg, mask=mask, quant_fn=quant_fn,
+            artifacts=artifacts, device=dev)
         if lkey is not None:
             if {k for k, v in artifacts.items() if v is not None} != before:
                 cache.put_artifacts(lkey, artifacts)

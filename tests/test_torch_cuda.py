@@ -307,3 +307,118 @@ def _fc_operands(b, din, dout, seed, device, spikes="binary"):
 def test_wm_fc_equals_inorder(cuda, b, din, dout, spikes):
     s, w = _fc_operands(b, din, dout, 1, cuda, spikes)
     _bits_equal(wm_fc_matmul(s, w), wm_fc_matmul_inorder(s, w))
+
+
+# ---------------------------------------------------------------------------
+# The measurement plane and the integer tier on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SMALL, SNNConfig()], ids=["small", "paper"])
+def test_stream_backend_counts_what_the_fused_kernel_counts(cuda, cfg):
+    fused, params, masks = _plan(cfg, 6, cuda)
+    stream = compile_plan(compile_snn(cfg), params, masks=masks,
+                          assignment="stream", device=cuda)
+    frames = sigma_delta_encode_batch(
+        torch.as_tensor(_iq(cfg, 8, 7), device=cuda), cfg.timesteps)
+    logits, accs = stream.batch_counters(frames)
+    _, conv_accs = stream_fused_forward(fused.fused_stack(), frames)
+    for i, name in enumerate(fused.fused_stack().conv_names):
+        assert torch.equal(accs[name], conv_accs[:, i]), name
+    cpu = compile_plan(compile_snn(cfg), params, masks=masks,
+                       assignment="stream", device="cpu")
+    want, want_accs = cpu.batch_counters(frames.cpu())
+    torch.testing.assert_close(logits.cpu(), want, atol=1e-5, rtol=0)
+    for name in want_accs:
+        assert torch.equal(accs[name].cpu(), want_accs[name])
+
+
+@pytest.mark.cuda
+def test_engine_gauges_on_the_card_equal_stream_counters(cuda):
+    from repro_torch.obs import metrics
+
+    fresh = metrics.MetricsRegistry()
+    old = metrics.set_default_registry(fresh)
+    try:
+        _, params, masks = _plan(SMALL, 8, cuda)
+        iq = _iq(SMALL, 13, 9)
+        with AsyncAMCServeEngine(params, SMALL, masks, max_batch=8,
+                                 name="card") as engine:
+            engine.classify(iq)
+            padded = engine.stats.padded_frames
+    finally:
+        metrics.set_default_registry(old)
+    stream = compile_plan(compile_snn(SMALL), params, masks=masks,
+                          assignment="stream", device=cuda)
+    _, accs = stream.batch_counters(sigma_delta_encode_batch(
+        torch.as_tensor(iq, device=cuda), SMALL.timesteps))
+    assert padded > 0
+    for name, a in accs.items():
+        assert fresh.value("repro_activity_accumulations_total", engine="card",
+                           layer=name) == float(a.double().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SMALL, SNNConfig()], ids=["small", "paper"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_fixed_backend_on_the_card_bit_equal_to_golden(cuda, cfg, bits):
+    from repro_torch.fixed import FixedQuantFn, build_golden
+    from repro_torch.train.lsq import init_lsq_scales
+
+    params = init_snn(10, cfg)
+    masks = make_mask_pytree(params, 0.5)
+    scales = init_lsq_scales(params, bits)
+    iq = _iq(cfg, 6, 11)
+    with AsyncAMCServeEngine(params, cfg, masks, backend="fixed", max_batch=8,
+                             lsq_scales=scales, quant_bits=bits) as engine:
+        logits = engine.step(iq)
+        preds = engine.classify(iq)
+    golden = build_golden(cfg, params, masks=masks,
+                          quant_fn=FixedQuantFn(scales, bits))
+    want = np.stack([golden.forward_iq(f) for f in iq])
+    assert logits.dtype == np.int32
+    np.testing.assert_array_equal(logits, want)
+    np.testing.assert_array_equal(preds, want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_lsq_fake_quant_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.train.lsq import lsq_fake_quant
+
+    rng = np.random.default_rng(12)
+    w = rng.normal(size=(11, 16, 32)).astype(np.float32)
+    g = torch.from_numpy(rng.normal(size=w.shape).astype(np.float32))
+    grads = []
+    for dev in ("cpu", cuda):
+        wt = torch.tensor(w, device=dev, requires_grad=True)
+        st = torch.tensor(0.01, device=dev, requires_grad=True)
+        out = lsq_fake_quant(wt, st, 8)
+        (out * g.to(dev)).sum().backward()
+        grads.append((out.detach().cpu(), wt.grad.cpu(), float(st.grad)))
+    assert torch.equal(grads[0][0], grads[1][0])
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-6, atol=1e-6)
+    assert abs(grads[0][2] - grads[1][2]) <= 1e-6 * max(1.0, abs(grads[0][2]))
+
+
+@pytest.mark.cuda
+def test_lsq_served_through_the_fused_kernel(cuda):
+    """cuda_fused with LSQ step sizes serves the fake-quantized weights
+    through the whole-network kernel: the plain goap plan on the same
+    quantized weights predicts the same."""
+    from repro_torch.train.lsq import init_lsq_scales, make_serving_quant_fn
+
+    params = init_snn(13, SNNConfig())
+    masks = make_mask_pytree(params, 0.5)
+    scales = init_lsq_scales(params, 8)
+    iq = _iq(SNNConfig(), 16, 14)
+    reset_launch_counts()
+    with AsyncAMCServeEngine(params, SNNConfig(), masks, max_batch=16,
+                             lsq_scales=scales, quant_bits=8) as engine:
+        preds = engine.classify(iq)
+    assert launch_counts()["stream_fused_forward"] >= 1
+    goap = compile_plan(compile_snn(SNNConfig()), params, masks=masks,
+                        quant_fn=make_serving_quant_fn(scales, 8),
+                        assignment="goap", device=cuda)
+    want = goap.bound.batch(sigma_delta_encode_batch(
+        torch.as_tensor(iq, device=cuda), 8)).argmax(-1)
+    np.testing.assert_array_equal(preds, want.cpu().numpy())

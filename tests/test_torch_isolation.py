@@ -42,6 +42,27 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.stream_fused" in result["imported"]
 
 
+# the modules of the measurement plane and the integer tier, each imported
+# alone in a fresh interpreter
+_ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
+          "repro_torch.obs.metrics", "repro_torch.core.cost_model",
+          "repro_torch.train.lsq"]
+
+
+@pytest.mark.parametrize("module", _ALONE)
+def test_importing_a_measurement_module_alone_loads_no_jax(module):
+    probe = ("import importlib, json, sys; importlib.import_module(%r); "
+             "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' "
+             "or m.startswith('jax.') or m == 'repro' "
+             "or m.startswith('repro.'))))" % module)
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 _FORBIDDEN = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b(?!_)"
                         r"|from\s+repro(\.|\s)(?!_))", re.M)
 

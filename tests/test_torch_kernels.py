@@ -450,7 +450,12 @@ def test_conv_weight_lists_are_the_nonzeros_in_ascending_row(cfg, cluster):
             for cl, ch in enumerate(range(start, stop)):
                 e = entries[q, rowptr[q, cl]:rowptr[q, cl + 1]]
                 w, off = e[:, 0], e[:, 1].view(np.int32)
+                # ascending ic-major row k = ic*KW + ci (w_cm's columns
+                # are ci-major, r = ci*IC + ic)
                 nz = np.flatnonzero(layer.w_cm[ch])
+                k = (nz % layer.ic) * layer.kw + nz // layer.ic
+                nz = nz[np.argsort(k)]
+                assert (np.diff(np.sort(k)) > 0).all()
                 n = len(nz)
                 np.testing.assert_array_equal(w[:n], layer.w_cm[ch, nz])
                 np.testing.assert_array_equal(off[:n], (nz % layer.ic) * wp + nz // layer.ic)

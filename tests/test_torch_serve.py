@@ -201,11 +201,18 @@ def test_engine_needs_cuda_or_an_explicit_cpu(weights):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             AsyncAMCServeEngine(tparams, SMALL, tmasks, warmup=False)
     for kw in ({"backend": "auto"}, {"backend": "per-layer"},
-               {"mesh": object()}, {"count_activity": True},
-               {"lsq_scales": {}}):
+               {"mesh": object()}):
         with pytest.raises(NotImplementedError):
             AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
                                 warmup=False, **kw)
+    # activity counting and quantized serving are ported: they construct
+    from repro_torch.train.lsq import init_lsq_scales
+
+    for kw in ({"count_activity": True},
+               {"lsq_scales": init_lsq_scales(tparams)}):
+        with AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
+                                 warmup=False, **kw) as engine:
+            assert engine.plan is not None
     with _engine(weights, warmup=False) as engine:
         with pytest.raises(NotImplementedError):
             engine.swap_to("v2")
