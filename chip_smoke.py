@@ -56,7 +56,22 @@ file; exits non-zero without them.  In order, it
      ``backend="fixed"`` with LSQ step sizes at 16 and 8 bits; the
      served step's int32 logits must be bit-equal to the numpy
      ``GoldenNet.forward_iq`` on the same I/Q; prints the step's ms;
-8. prints one JSON line of per-kernel results, and last
+8. trains the paper model on the card (``train``: ``SNNTrainer`` at full
+   width, batch 64, Table V's 25-20-15-20-25 per-layer densities, 16-bit
+   LSQ, ``prune_every=10``, 40 steps, checkpoints in a temporary
+   directory) and gates four things: one training step on the card
+   against the same step on the CPU from the same state and batch (loss
+   within 1e-4, clipped gradients within 1e-3 in relative norm); a
+   trainer resumed from the step-20 checkpoint equal to the one that ran
+   on, bit for bit, after 20 more steps; the trained, pruned, quantized
+   model served to 256 requests through ``AsyncAMCServeEngine(backend=
+   "cuda_fused", lsq_scales=...)``, launching the whole-network kernel and
+   nothing else, with the plain ``goap`` backend's predictions; every
+   loss finite.  Prints ``train_phase`` with the median step ms (host to
+   host), its host part (RadioML generation and Σ-Δ encoding), the card's
+   busy ms and operations a step (``torch.profiler``), the first and last
+   10 steps' mean loss and both accuracies;
+9. prints one JSON line of per-kernel results, and last
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -84,6 +99,12 @@ REQUESTS = 256
 SEED = 0
 DENSITY = 0.5
 ATOL = 1e-5
+# the train phase: steps in all, the step of the resume checkpoint, and its
+# gates on one step, card against CPU
+TRAIN_STEPS = 40
+TRAIN_RESUME_AT = 20
+TRAIN_LOSS_ATOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
 
 
 def nvidia_smi() -> str:
@@ -495,6 +516,10 @@ def run(device, timers: Timers, seed: int = SEED):
     run_gauges_phase(params, masks, cfg, iq, preds, stream_plan, device, timers)
     print("phase: fixed")
     run_fixed_phase(params, masks, cfg, iq, device, timers)
+    print("phase: train")
+    trained = run_train_phase(cfg, device, timers, seed)
+    for row in result["kernels"]:
+        row["launches_by_path"]["trained"] = trained[row["name"]]
     return result
 
 
@@ -670,6 +695,211 @@ def run_fixed_phase(params, masks, cfg, iq, device, timers):
                                  "the golden")
         line[f"step_ms_{bits}"] = step_ms
     print(f"fixed_phase {json.dumps(line)}")
+
+
+def train_config(cfg, **overrides):
+    """The train phase's ``TrainerConfig``: batch 64, Table V's per-layer
+    densities 25-20-15-20-25, 16-bit LSQ, masks recomputed every 10 steps
+    (the ramp runs from step 8 and freezes at step 32 of 40), Σ-Δ OSR =
+    the model's T."""
+    from repro_torch.configs.saocds_amc import DENSITY_CONFIGS
+    from repro_torch.train import TrainerConfig
+
+    return TrainerConfig(
+        total_steps=TRAIN_STEPS, batch_size=BATCH, snr_db=10.0,
+        osr=cfg.timesteps,
+        per_layer_density=DENSITY_CONFIGS["saocds-25-20-15-20-25"],
+        prune_every=10, use_lsq=True, quant_bits=16, **overrides)
+
+
+def check_step_against_cpu(cfg, device) -> dict:
+    """Gate 1: one training step on the card and on the CPU from the same
+    trainer state (the numpy-seeded init, masks at the final densities)
+    and the same batch: the loss within TRAIN_LOSS_ATOL, the clipped
+    gradients (every param leaf) within TRAIN_GRAD_RTOL in relative norm.
+    The LSQ step sizes' gradients are printed beside them."""
+    import torch
+
+    from repro_torch.train import SNNTrainer, make_mask_pytree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tcfg = train_config(cfg)
+    cpu = SNNTrainer(cfg, tcfg, device="cpu")
+    card = SNNTrainer(cfg, tcfg, device=device)
+    masks = make_mask_pytree(cpu.params, tcfg.per_layer_density)
+    frames, labels, _ = cpu._batch(SEED, tcfg.snr_db)
+    got = card._gradients(card.params, card.lsq_scales,
+                          tree_map(lambda m: m.to(device), masks),
+                          frames.to(device), labels.to(device))
+    want = cpu._gradients(cpu.params, cpu.lsq_scales, masks, frames, labels)
+
+    def rel(a, b):
+        a = torch.cat([x.cpu().reshape(-1) for x in tree_leaves(a)]).double()
+        b = torch.cat([x.reshape(-1) for x in tree_leaves(b)]).double()
+        return float((a - b).norm() / b.norm())
+
+    line = {"loss_card": float(got[0]), "loss_cpu": float(want[0]),
+            "loss_abs_diff": abs(float(got[0]) - float(want[0])),
+            "grad_rel_diff": rel(got[2], want[2]),
+            "lsq_grad_rel_diff": rel(got[3], want[3]),
+            "grad_norm_card": float(got[4]), "grad_norm_cpu": float(want[4])}
+    print(f"  one step, card vs CPU: {json.dumps(line)}")
+    if not (line["loss_abs_diff"] <= TRAIN_LOSS_ATOL
+            and line["grad_rel_diff"] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"the training step on the card differs from the "
+                             f"CPU's: {line}")
+    return line
+
+
+def profile_steps(step, steps: int = 3) -> dict:
+    """Device busy time and device operations per training step, by
+    ``torch.profiler`` over ``steps`` calls of ``step`` (each one whole
+    step, host to host): the union of the intervals in which a kernel or
+    copy ran on the card, per step.  ``None`` where the profiler saw no
+    device activity (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"profiled_step_ms": wall_ms,
+            "device_busy_ms": busy_us / 1e3 / steps if spans else None,
+            "device_ops_per_step": len(spans) / steps if spans else None}
+
+
+def run_train_phase(cfg, device, timers, seed: int = SEED) -> dict:
+    """Phase 8: train the model on the card, resume bit for bit, serve the
+    trained model through the whole-network kernel.  Returns the served
+    path's launch counts."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine, compile_plan, compile_snn
+    from repro_torch.data.pipeline import sigma_delta_encode_np
+    from repro_torch.data.radioml import generate_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train import SNNTrainer, mask_density
+    from repro_torch.train.lsq import make_serving_quant_fn
+    from repro_torch.tree import tree_leaves
+
+    line = {"steps": TRAIN_STEPS, "batch": BATCH,
+            "one_step": check_step_against_cpu(cfg, device)}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # gate 2: A trains to the checkpoint and on; B resumes from a copy
+        # of that checkpoint and trains the same steps one at a time, timed
+        dir_a, dir_b = f"{work}/a", f"{work}/b"
+        a = SNNTrainer(cfg, train_config(cfg, ckpt_dir=dir_a,
+                                         ckpt_every=TRAIN_RESUME_AT),
+                       device=device)
+        first = a.run(steps=TRAIN_RESUME_AT, log_every=1)
+        shutil.copytree(dir_a, dir_b)
+        b = SNNTrainer(cfg, train_config(cfg, ckpt_dir=dir_b), device=device)
+        if not b.resume() or b.step != TRAIN_RESUME_AT:
+            raise AssertionError(f"resume from step {TRAIN_RESUME_AT} failed")
+        b.ckpt = None   # B's steps are timed: no saves among them
+        rest = a.run(steps=TRAIN_STEPS - TRAIN_RESUME_AT, log_every=1)
+        step_ms, b_losses = [], []
+        for _ in range(TRAIN_STEPS - TRAIN_RESUME_AT):
+            t0 = time.perf_counter()
+            b_losses += b.run(steps=1, log_every=1)["loss"]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        state_a, state_b = tree_leaves(a._state_tree()), tree_leaves(b._state_tree())
+        n_diff = sum(not torch.equal(x, y) for x, y in zip(state_a, state_b))
+        print(f"  resume: {len(state_a)} leaves (params, opt, masks, LSQ); "
+              f"{n_diff} differ bit for bit after {TRAIN_STEPS} steps")
+        if len(state_a) != len(state_b) or n_diff:
+            raise AssertionError("the resumed trainer differs from the one "
+                                 "that ran on")
+        # where a step's time goes on the card (B trains on, A is kept)
+        line["profile"] = profile_steps(lambda: b.run(steps=1, log_every=1))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    losses = first["loss"] + rest["loss"]
+    # gate 4: every loss finite
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses + b_losses + [
+                line["one_step"]["loss_card"], line["one_step"]["loss_cpu"]]):
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+
+    # the host part of a step: generate and encode one batch (numpy)
+    def host_part():
+        iq, _, _ = generate_batch(seed, BATCH, 10.0, frame_len=cfg.input_width)
+        sigma_delta_encode_np(iq, cfg.timesteps)
+
+    frames, labels_dev, _ = a._batch(seed, 10.0)
+    warm = step_ms[3:]
+    line.update({
+        "step_ms_median": statistics.median(warm),
+        "step_ms_min": min(warm), "step_ms_max": max(warm),
+        "host_ms": timers.host(host_part),
+        # the training step alone (forward, backward, clip, AdamW, LSQ)
+        # between two CUDA events, on a batch already on the card
+        "train_step_call_ms": timers.call(lambda: a._train_step(
+            a.params, a.opt_state, a.lsq_scales, a.masks, frames, labels_dev)),
+        "loss_first10": statistics.mean(losses[:10]),
+        "loss_last10": statistics.mean(losses[-10:]),
+        "mask_density": mask_density(a.masks),
+    })
+    # the rest of the step: issuing the step's ops, and the card's work
+    line["step_minus_host_ms"] = line["step_ms_median"] - line["host_ms"]
+    busy = line["profile"]["device_busy_ms"]
+    line["device_idle_share"] = (None if busy is None
+                                 else 1.0 - busy / line["step_ms_median"])
+
+    # gate 3: the trained model served through the whole-network kernel
+    iq, labels, _ = generate_batch(seed + 1, REQUESTS, 10.0,
+                                   frame_len=cfg.input_width)
+    reset_launch_counts()
+    with AsyncAMCServeEngine(a.params, cfg, a.masks, backend="cuda_fused",
+                             lsq_scales=a.lsq_scales, quant_bits=16,
+                             max_batch=BATCH, device=device,
+                             name="trained") as engine:
+        futures = [engine.submit(frame) for frame in iq]
+        preds = np.array([f.result(timeout=600) for f in futures])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"  trained model served: {len(preds)} requests; launches {counts}")
+    expect_launches(counts, {"stream_fused_forward"}, "trained served path")
+    goap = compile_plan(compile_snn(cfg), a.params, masks=a.masks,
+                        assignment="goap",
+                        quant_fn=make_serving_quant_fn(a.lsq_scales, 16),
+                        device=device)
+    want = np.concatenate([
+        goap.bound.batch(torch.as_tensor(chunk, device=device)).argmax(-1).cpu().numpy()
+        for chunk in np.split(sigma_delta_encode_np(iq, cfg.timesteps),
+                              REQUESTS // BATCH)])
+    n_diff = int((preds != want).sum())
+    print(f"  trained served predictions vs plain goap backend: {n_diff} of "
+          f"{len(preds)} differ")
+    if n_diff:
+        raise AssertionError(f"{n_diff} trained served predictions differ from "
+                             "the plain goap backend")
+    line.update({"served_requests": len(preds),
+                 "served_accuracy": float((preds == labels).mean()),
+                 "evaluate_accuracy": a.evaluate(snr_db=10.0),
+                 "served_launches": counts})
+    line["card"] = nvidia_smi() if device.type == "cuda" else "cpu"
+    print(f"train_phase {json.dumps(line)}")
+    return counts
 
 
 def main() -> int:

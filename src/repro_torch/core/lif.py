@@ -39,7 +39,9 @@ class _Spike(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> torch.Tensor:
         (u,) = ctx.saved_tensors
-        return g / (1.0 + SURROGATE_SLOPE * u.abs()) ** 2
+        # the reference's order: g times the surrogate (a quotient of g
+        # would round differently)
+        return g * (1.0 / (1.0 + SURROGATE_SLOPE * u.abs()) ** 2)
 
 
 def spike(v_minus_th: torch.Tensor) -> torch.Tensor:

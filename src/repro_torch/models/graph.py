@@ -56,6 +56,7 @@ from repro_torch.core.sparse_format import (
     coo_from_dense,
     coo_to_dense,
 )
+from repro_torch.device import resolve_device
 from repro_torch.models.snn import SNNConfig
 
 __all__ = [
@@ -281,8 +282,14 @@ def _weight_np(layer_params, mask, quant_fn, artifacts) -> np.ndarray:
 
 
 def _weight(layer_params, mask, quant_fn, artifacts, device) -> torch.Tensor:
-    return torch.as_tensor(_weight_np(layer_params, mask, quant_fn, artifacts),
-                           dtype=torch.float32, device=device)
+    """The effective weight on ``device``: a plan's precomputed numpy one,
+    else (an unbound ``SNNProgram._bind``) the tensor itself, so autograd
+    reaches the weight, its mask product and the quant_fn's step size."""
+    if artifacts is not None and artifacts.get("w_eff") is not None:
+        return torch.as_tensor(artifacts["w_eff"], dtype=torch.float32,
+                               device=device)
+    return effective_weight(layer_params, mask, quant_fn).to(
+        device=device, dtype=torch.float32)
 
 
 def _layer_coo(layer_params, mask, quant_fn, artifacts) -> CooKernel:
@@ -601,6 +608,27 @@ class SNNProgram:
         plan = compile_plan(self, params, masks=masks, quant_fn=quant_fn,
                             assignment=backend, device=device)
         return plan.bound.batch(plan.to_device(frames_b))
+
+    def _bind(self, params, backend: str = "dense", *, masks=None,
+              quant_fn=None, device=None) -> BoundProgram:
+        """Resolve every layer against ``backend`` and close over params on
+        ``device`` (the card unless ``device="cpu"``).
+
+        The raw, uncached binding primitive: no plan, no artifacts.  On
+        ``dense`` the cells hold the params' own tensors, so a loss of
+        their output differentiates to every weight, LIF parameter and LSQ
+        step size (the trainer's path); ``quant_fn`` is called once per
+        weighted layer, in graph order.  Concrete-weight serving goes
+        through :func:`repro_torch.plan.compile_plan` instead.
+        """
+        dev = resolve_device(device)
+        stages = []
+        for spec in self.layers:
+            factory = get_backend(backend, spec.kind)
+            lp, m = self.layer_params(spec, params, masks)
+            stages.append((spec, factory(spec, lp, cfg=self.cfg, mask=m,
+                                         quant_fn=quant_fn, device=dev)))
+        return BoundProgram(backend=backend, stages=tuple(stages))
 
     @staticmethod
     def layer_params(spec: LayerSpec, params, masks):

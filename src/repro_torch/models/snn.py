@@ -23,8 +23,10 @@ import torch
 
 from repro_torch.core.lif import init_lif_params
 from repro_torch.core.sparse_format import coo_from_dense
+from repro_torch.tree import tree_leaves
 
-__all__ = ["SNNConfig", "init_snn", "sparsify_params"]
+__all__ = ["SNNConfig", "init_snn", "param_count", "sparsify_params",
+           "density_report"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +85,11 @@ def init_snn(seed: int, cfg: SNNConfig) -> Dict[str, Any]:
     return params
 
 
+def param_count(params) -> int:
+    """Number of scalars over every leaf (weights and LIF parameters)."""
+    return sum(int(np.prod(p.shape)) for p in tree_leaves(params))
+
+
 def _masked(w: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return w if mask is None else w * mask
 
@@ -98,3 +105,17 @@ def sparsify_params(params: Dict[str, Any], masks: Optional[Dict[str, Any]] = No
         w = _masked(layer["w"], masks["fc"][fi] if masks else None)
         sp["fc"].append({"w": w, "lif": layer["lif"]})
     return sp
+
+
+def density_report(params, masks=None) -> Dict[str, float]:
+    """Fraction of non-zero (masked) weights per layer."""
+    def density(w, mask) -> float:
+        w = _masked(w, mask).detach().cpu().numpy()
+        return float((w != 0).mean())
+
+    out = {}
+    for li, layer in enumerate(params["conv"]):
+        out[f"conv{li + 1}"] = density(layer["w"], masks["conv"][li] if masks else None)
+    for fi, layer in enumerate(params["fc"]):
+        out[f"fc{fi + 1}"] = density(layer["w"], masks["fc"][fi] if masks else None)
+    return out

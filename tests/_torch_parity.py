@@ -56,3 +56,51 @@ def spike_frames(seed, shape):
 
 def t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# the reduced training config of tests/test_checkpoint.py (T = 2, width
+# 128, 11 classes), with the threshold at 0.5 so that spikes reach the
+# readout within two timesteps (at 1.0 every logit stays 0 and the loss
+# stays log 11)
+TRAIN_SPEC = dict(conv_specs=((3, 2, 4), (3, 4, 8), (3, 8, 8)),
+                  fc_specs=((8 * 16, 16), (16, 11)), timesteps=2,
+                  lif_v_th=0.5)
+TRAIN_DENSITY = {"conv1": 0.5, "conv2": 0.4, "conv3": 0.3, "fc1": 0.4,
+                 "fc2": 0.5}
+TRAIN_BASE = dict(total_steps=6, batch_size=4, osr=2)
+
+
+def ref_trainer(**overrides):
+    """A reference ``SNNTrainer`` on the reduced training config."""
+    from repro.train import SNNTrainer, TrainerConfig
+
+    return SNNTrainer(RefConfig(**TRAIN_SPEC),
+                      TrainerConfig(**{**TRAIN_BASE, **overrides}))
+
+
+def port_trainer(params=None, lsq_scales=None, **overrides):
+    """The port's ``SNNTrainer`` on the CPU; given reference ``params`` (and
+    LSQ scales), holding those, with a fresh optimizer state."""
+    from repro_torch.train import SNNTrainer, TrainerConfig
+
+    tr = SNNTrainer(SNNConfig(**TRAIN_SPEC),
+                    TrainerConfig(**{**TRAIN_BASE, **overrides}), device="cpu")
+    if params is not None:
+        tr.params = params_from_numpy(params_to_numpy(params))
+        tr.opt_state = tr.opt_init(tr.params)
+    if lsq_scales is not None:
+        tr.lsq_scales = {g: [t(s) for s in lsq_scales[g]]
+                         for g in ("conv", "fc")}
+    return tr
+
+
+def ref_leaves(tree):
+    """A reference pytree's leaves as numpy, in jax order."""
+    return [np.asarray(x) for x in jax.tree_util.tree_leaves(tree)]
+
+
+def port_leaves(tree):
+    """A port tree's leaves as numpy, in the port's (jax) order."""
+    from repro_torch.tree import tree_leaves
+
+    return [x.detach().cpu().numpy() for x in tree_leaves(tree)]

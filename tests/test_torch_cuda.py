@@ -422,3 +422,36 @@ def test_lsq_served_through_the_fused_kernel(cuda):
     want = goap.bound.batch(sigma_delta_encode_batch(
         torch.as_tensor(iq, device=cuda), 8)).argmax(-1)
     np.testing.assert_array_equal(preds, want.cpu().numpy())
+
+
+# the reduced training config of tests/_torch_parity.py (T = 2, threshold
+# 0.5 so that spikes reach the readout)
+TRAIN_SMALL = SNNConfig(conv_specs=((3, 2, 4), (3, 4, 8), (3, 8, 8)),
+                        fc_specs=((8 * 16, 16), (16, 11)), timesteps=2,
+                        lif_v_th=0.5).validate()
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One training step (per-layer masks, 16-bit LSQ) on the card against
+    the same step on the CPU, from the same state and batch: the loss
+    within 1e-4 and the clipped gradients within 1e-3 in relative norm
+    (chip_smoke's train-phase gate, at a reduced size)."""
+    from repro_torch.train import SNNTrainer, TrainerConfig, make_mask_pytree
+    from repro_torch.tree import tree_leaves, tree_map
+
+    density = {"conv1": 0.5, "conv2": 0.4, "conv3": 0.3, "fc1": 0.4, "fc2": 0.5}
+    tcfg = TrainerConfig(total_steps=6, batch_size=8, osr=2, use_lsq=True,
+                         per_layer_density=density, prune_every=2)
+    cpu = SNNTrainer(TRAIN_SMALL, tcfg, device="cpu")
+    card = SNNTrainer(TRAIN_SMALL, tcfg, device=cuda)
+    masks = make_mask_pytree(cpu.params, density)
+    frames, labels, _ = cpu._batch(3, 10.0)
+    got = card._gradients(card.params, card.lsq_scales,
+                          tree_map(lambda m: m.to(cuda), masks),
+                          frames.to(cuda), labels.to(cuda))
+    want = cpu._gradients(cpu.params, cpu.lsq_scales, masks, frames, labels)
+    assert abs(float(got[0]) - float(want[0])) <= 1e-4
+    g = torch.cat([x.cpu().reshape(-1) for x in tree_leaves(got[2])]).double()
+    w = torch.cat([x.reshape(-1) for x in tree_leaves(want[2])]).double()
+    assert float((g - w).norm() / w.norm()) <= 1e-3

@@ -42,11 +42,15 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.stream_fused" in result["imported"]
 
 
-# the modules of the measurement plane and the integer tier, each imported
-# alone in a fresh interpreter
+# the modules of the measurement plane, the integer tier and the training
+# path, each imported alone in a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
-          "repro_torch.train.lsq"]
+          "repro_torch.train.lsq", "repro_torch.data.radioml",
+          "repro_torch.data.pipeline", "repro_torch.channel.impairments",
+          "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
+          "repro_torch.train.trainer", "repro_torch.configs.saocds_amc",
+          "repro_torch.launch.train", "repro_torch.tree"]
 
 
 @pytest.mark.parametrize("module", _ALONE)
