@@ -71,8 +71,30 @@ file; exits non-zero without them.  In order, it
    host), its host part (RadioML generation and Σ-Δ encoding), the card's
    busy ms and operations a step (``torch.profiler``), the first and last
    10 steps' mean loss and both accuracies;
-9. prints one JSON line of per-kernel results, and last
-   ``{"ok": true, "device": {...}}``.
+9. races the backends as a user's default engine does
+   (``autotune_phase``: ``AsyncAMCServeEngine(params, cfg, masks)`` with
+   ``backend="auto"`` races dense, goap, cuda and cuda_fused on the
+   batch-64 bucket; ``cuda`` and ``cuda_fused`` must be timed and raise
+   nothing, the race must launch all four kernels, and the 256 served
+   requests only the winner's, with the ``goap`` backend's predictions;
+   each candidate's race time stands beside its step on the race's
+   all-zero probe and on real frames);
+10. races them layer by layer (``per_layer_phase``: ``backend=
+    "per-layer"``; every weighted layer times cuda and cuda_fused without
+    error, and the winning assignment serves the 256 requests with
+    ``goap``'s predictions and only its kernels);
+11. runs the synchronous ``AMCServeEngine(backend="cuda_fused")`` on the
+    256 frames (``sync_phase``: predictions equal to the auto engine's;
+    p50/p99, fps, and the auto engine's ``export_stats()``);
+12. profiles the ``cuda`` plan's layer steps and makes a disk-tier round
+    trip of the plan cache in a temporary directory (``plan_phase``: a
+    fresh cache loads every layer's artifacts, 5 for ``fixed`` and 3 for
+    ``cuda_fused``, and builds none);
+13. prints the paper's Tables I, II, III and IV-V and Fig. 8 with Table V
+    retention at the reference scripts' defaults, with the seconds each
+    took (``paper_phase``; Table I must match the paper);
+14. prints the whole run's seconds, one JSON line of per-kernel results,
+    the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
 """
@@ -436,6 +458,11 @@ def run(device, timers: Timers, seed: int = SEED):
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
+    from repro_torch.plan import PlanCache, set_default_cache
+
+    # plans stay in memory: nothing is written outside the checkout and
+    # the temporary directories (plan_phase makes its own disk cache)
+    set_default_cache(PlanCache(disk_dir=""))
     cfg = SNNConfig()
     params = init_snn(seed, cfg)
     masks = make_mask_pytree(params, DENSITY)
@@ -517,9 +544,22 @@ def run(device, timers: Timers, seed: int = SEED):
     print("phase: fixed")
     run_fixed_phase(params, masks, cfg, iq, device, timers)
     print("phase: train")
-    trained = run_train_phase(cfg, device, timers, seed)
+    paths = {"trained": run_train_phase(cfg, device, timers, seed)}
+    print("phase: autotune")
+    auto_preds, auto_stats, auto_paths = run_autotune_phase(
+        params, masks, cfg, iq, want, device, timers)
+    paths.update(auto_paths)
+    print("phase: per-layer")
+    paths.update(run_per_layer_phase(params, masks, cfg, iq, want, device))
+    print("phase: sync")
+    run_sync_phase(params, masks, cfg, iq, auto_preds, auto_stats, device)
+    print("phase: plan")
+    run_plan_phase(program, params, masks, frames_b, device)
+    print("phase: paper")
+    run_paper_phase(device)
     for row in result["kernels"]:
-        row["launches_by_path"]["trained"] = trained[row["name"]]
+        for path, counts in paths.items():
+            row["launches_by_path"][path] = counts[row["name"]]
     return result
 
 
@@ -902,6 +942,281 @@ def run_train_phase(cfg, device, timers, seed: int = SEED) -> dict:
     return counts
 
 
+def kernels_of(plan) -> set:
+    """The kernels a plan's preferred batch launches."""
+    if plan.fused_stack() is not None:
+        return {"stream_fused_forward"}
+    out = set()
+    for lp in plan.layers:
+        if lp.backend in ("cuda", "cuda_fused"):
+            out |= {"lif_update_fused", "goap_conv_block_sparse"
+                    if lp.spec.kind == "conv_lif" else "wm_fc_matmul"}
+    return out
+
+
+def serve_all(engine, iq):
+    import numpy as np
+
+    futures = [engine.submit(frame) for frame in iq]
+    return np.array([f.result(timeout=600) for f in futures])
+
+
+def check_race_errors(errors, what: str) -> None:
+    """A kernel that fails to build or launch must not hide in the race:
+    the race records it and serves another backend, so fail here."""
+    bad = {k: v for k, v in errors.items() if k in ("cuda", "cuda_fused")}
+    if bad:
+        raise AssertionError(f"{what}: a kernel backend raised: {bad}")
+
+
+def run_autotune_phase(params, masks, cfg, iq, want, device, timers):
+    """The default engine (``backend="auto"``) races dense, goap, cuda and
+    cuda_fused on the batch-64 bucket, then serves the 256 requests with
+    the winner.  Two launch windows: the race (every kernel) and the
+    served requests (the winner's kernels and no other).  Beside each
+    candidate's race time: its step on the race's all-zero probe and on
+    real frames, on one stopwatch.  Returns (predictions, engine's
+    ``export_stats()``, {path: launches})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine, compile_plan, compile_snn
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = AsyncAMCServeEngine(params, cfg, masks, max_batch=BATCH,
+                                 device=device, name="auto")
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    race = launch_counts()
+    try:
+        report = engine.autotune.summary()
+        print(f"  race: {json.dumps(report)}; launches {race}")
+        check_race_errors(report["errors"], "autotune race")
+        if report["fell_back"] or not {"cuda", "cuda_fused"} <= set(
+                report["timings_ms"]):
+            raise AssertionError(f"autotune race did not time both kernel "
+                                 f"backends: {report}")
+        expect_launches(race, set(PER_LAYER) | {"stream_fused_forward"},
+                        "autotune race")
+        reset_launch_counts()
+        preds = serve_all(engine, iq)
+        torch.cuda.synchronize()
+        served = launch_counts()
+        stats = engine.export_stats()
+    finally:
+        engine.close()
+    print(f"  auto engine served {len(preds)} requests with "
+          f"{engine.backend!r}; launches {served}")
+    expect_launches(served, kernels_of(engine.plan), "auto served path")
+    n_diff = int((preds != want).sum())
+    print(f"  auto engine predictions vs plain goap backend: {n_diff} of "
+          f"{len(preds)} differ")
+    if n_diff:
+        raise AssertionError(f"{n_diff} auto-served predictions differ from "
+                             "the plain goap backend")
+    # each candidate's step on the race's probe and on real frames
+    program = compile_snn(cfg)
+    iq_dev = torch.as_tensor(iq[:BATCH], device=device)
+    zeros = torch.zeros_like(iq_dev)
+    steps = {}
+    with torch.inference_mode():
+        for name, race_ms in report["timings_ms"].items():
+            plan = compile_plan(program, params, masks=masks, assignment=name,
+                                device=device)
+            batch = plan.batch if name == "cuda_fused" else plan.bound.batch
+
+            def step(x, batch=batch):
+                return batch(sigma_delta_encode_batch(x, cfg.timesteps))
+
+            steps[name] = {"race_ms": race_ms,
+                           "zero_probe_ms": timers.host(lambda: step(zeros)),
+                           "real_frames_ms": timers.host(lambda: step(iq_dev))}
+    print("autotune_phase " + json.dumps({
+        "choice": report["choice"], "batch_shape": report["batch_shape"],
+        "startup_s": startup_s,
+        "steps": steps, "launches_race": race, "launches_served": served,
+        "served": {k: stats[k] for k in ("requests", "throughput_fps",
+                                         "p50_ms", "p99_ms")}}))
+    return preds, stats, {"auto_race": race, "auto_served": served}
+
+
+def run_per_layer_phase(params, masks, cfg, iq, want, device):
+    """``backend="per-layer"``: every weighted layer races the candidates on
+    its own input shape (cuda and cuda_fused must both be timed, without
+    error), then the winning assignment serves the 256 requests.  Returns
+    {path: launches}."""
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    engine = AsyncAMCServeEngine(params, cfg, masks, backend="per-layer",
+                                 max_batch=BATCH, device=device,
+                                 name="per-layer")
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    race = launch_counts()
+    try:
+        report = engine.perlayer.summary()
+        print(f"  per-layer race: {json.dumps(report)}; launches {race}")
+        for layer, errors in report["errors"].items():
+            check_race_errors(errors, f"per-layer race, {layer}")
+            if not {"cuda", "cuda_fused"} <= set(report["timings_ms"][layer]):
+                raise AssertionError(f"per-layer race, {layer}: a kernel "
+                                     "backend was not timed")
+        if report["fell_back"]:
+            raise AssertionError(f"per-layer race fell back: {report}")
+        if "cuda" in report["assignment"].values():
+            # cuda and cuda_fused time one cell: a kernel win is cuda_fused
+            raise AssertionError("per-layer race assigned cuda beside "
+                                 f"cuda_fused: {report['assignment']}")
+        expect_launches(race, set(PER_LAYER) | (
+            {"stream_fused_forward"} & kernels_of(engine.plan)),
+            "per-layer race")
+        reset_launch_counts()
+        preds = serve_all(engine, iq)
+        torch.cuda.synchronize()
+        served = launch_counts()
+    finally:
+        engine.close()
+    expect_launches(served, kernels_of(engine.plan), "per-layer served path")
+    n_diff = int((preds != want).sum())
+    print(f"  per-layer engine served {len(preds)} requests with "
+          f"{engine.assignment}; launches {served}; {n_diff} predictions "
+          "differ from the plain goap backend")
+    if n_diff:
+        raise AssertionError(f"{n_diff} per-layer-served predictions differ "
+                             "from the plain goap backend")
+    print("per_layer_phase " + json.dumps({
+        "assignment": report["assignment"], "startup_s": startup_s,
+        "timings_ms": report["timings_ms"],
+        "priors": report["priors"], "launches_race": race,
+        "launches_served": served,
+        "served": {k: engine.stats.summary()[k] for k in (
+            "requests", "throughput_fps", "p50_ms", "p99_ms")}}))
+    return {"per_layer_race": race, "per_layer_served": served}
+
+
+def run_sync_phase(params, masks, cfg, iq, auto_preds, auto_stats, device):
+    """The synchronous engine (host Σ-Δ encode, the whole-network kernel)
+    classifies the 256 frames in chunks of 64; its predictions must equal
+    the auto engine's."""
+    import torch
+
+    from repro_torch.serve import AMCServeEngine
+
+    engine = AMCServeEngine(params, cfg, masks, backend="cuda_fused",
+                            batch_size=BATCH, device=device)
+    preds = engine.classify(iq)
+    torch.cuda.synchronize()
+    n_diff = int((preds != auto_preds).sum())
+    st = engine.stats
+    print(f"  sync engine: {len(preds)} frames; {n_diff} predictions differ "
+          "from the auto engine's")
+    if n_diff:
+        raise AssertionError("the sync engine's predictions differ from the "
+                             "auto engine's")
+    print("sync_phase " + json.dumps({
+        "requests": st.requests, "batches": st.batches,
+        "throughput_fps": st.throughput_fps(), "p50_ms": st.p50_ms,
+        "p99_ms": st.p99_ms, "auto_export_stats": auto_stats}))
+
+
+def run_plan_phase(program, params, masks, frames_b, device):
+    """``profile_layer_steps`` of the ``cuda`` plan at batch 64, and a
+    disk-tier round trip in a temporary directory: a fresh cache on the
+    same directory loads every layer's artifacts and builds none."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import compile_plan
+    from repro_torch.fixed import serving_quant_fn
+    from repro_torch.models.graph import artifact_build_count
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.plan import PlanCache
+    from repro_torch.plan.streaming import profile_layer_steps
+
+    cuda_plan = compile_plan(program, params, masks=masks, assignment="cuda",
+                             device=device)
+    layer_ms = profile_layer_steps(cuda_plan, frames_b.transpose(0, 1),
+                                   registry=MetricsRegistry())
+    print(f"  cuda plan, one layer's T steps at batch {frames_b.shape[0]} "
+          f"(ms): {json.dumps(layer_ms)}")
+    line = {"layer_step_ms": layer_ms, "disk": {}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    try:
+        # fixed stores an artifact for every weighted layer (5), cuda_fused
+        # for the convs (3: COO, schedule, block-sparse tiles)
+        n_conv = len(program.cfg.conv_specs)
+        for backend, layers in (("fixed", n_conv + len(program.cfg.fc_specs)),
+                                ("cuda_fused", n_conv)):
+            def build(cache):
+                return compile_plan(program, params, masks=masks,
+                                    assignment=backend, cache=cache,
+                                    quant_fn=serving_quant_fn(
+                                        None, 16, assignment=backend),
+                                    device=device)
+
+            cold = build(PlanCache(work))
+            built = artifact_build_count()
+            warm_cache = PlanCache(work)
+            warm = build(warm_cache)
+            hits = warm_cache.stats["layer_disk_hits"]
+            rebuilt = artifact_build_count() - built
+            same = bool(torch.equal(cold.bound.batch(frames_b),
+                                    warm.bound.batch(frames_b)))
+            line["disk"][backend] = {"layer_disk_hits": hits,
+                                     "artifacts_built": rebuilt,
+                                     "logits_equal": same}
+            print(f"  disk round trip, {backend}: {hits} layers from disk, "
+                  f"{rebuilt} artifacts built; logits equal: {same}")
+            if hits != layers or rebuilt or warm.digest != cold.digest or not same:
+                raise AssertionError(f"disk round trip of {backend} failed: "
+                                     f"{line['disk'][backend]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print("plan_phase " + json.dumps(line))
+
+
+def run_paper_phase(device):
+    """The paper's Tables I, II, III and IV-V and Fig. 8 with Table V
+    retention, at the reference scripts' defaults (the accuracy sweep
+    trains 200 steps at batch 48 on the card); Table I must match."""
+    from repro_torch.bench import (accuracy_sweep, table1_goap_vs_sw,
+                                   table2_coo_overhead, table3_accum_ratio,
+                                   table45_perf_model)
+
+    runs = ((table1_goap_vs_sw, {}), (table2_coo_overhead, {}),
+            (table3_accum_ratio, {"n_samples": 16, "device": device}),
+            (table45_perf_model, {}),
+            (accuracy_sweep, {"steps": 200, "batch": 48, "device": device}))
+    line = {}
+    for module, kwargs in runs:
+        t0 = time.perf_counter()
+        res = module.run(**kwargs)
+        line[module.NAME] = {"seconds": time.perf_counter() - t0}
+        print(module.format_table(res))
+        if module is table1_goap_vs_sw:
+            line[module.NAME]["match"] = res["exact"]["match"]
+            if not res["exact"]["match"]:
+                raise AssertionError("Table I does not match the paper")
+        if module is accuracy_sweep:
+            line[module.NAME].update(
+                snr={r["snr_db"]: r["accuracy"] for r in res["snr"]},
+                retention={r["density"]: r["retention_vs_original"]
+                           for r in res["density"]},
+                final_train_loss=res["final_train_loss"])
+    line["card"] = nvidia_smi() if device.type == "cuda" else "cpu"
+    print("paper_phase " + json.dumps(line))
+
+
 def main() -> int:
     import torch
 
@@ -914,7 +1229,7 @@ def main() -> int:
 
     card = nvidia_smi()
     print(card)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.library()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s")
     for line in build.build_log().splitlines():
@@ -930,6 +1245,7 @@ def main() -> int:
               f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
               f"{row['bound_ms']:.6f} by {row['bound_by']}, library "
               f"{row['library_ms']}), launches {row['launches']}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.3f} s in all")
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@
     plan = compile_plan(program, params, masks=masks,
                         assignment="cuda_fused")  # on the card
     logits = plan.batch(frames_b)                 # one kernel launch
+    engine = AsyncAMCServeEngine(params, cfg, masks)  # races the backends
     logits = program.apply(params, frames, backend="goap", device="cpu")
 
 Backends: ``dense``, ``goap`` (plain torch), ``cuda`` and ``cuda_fused``
@@ -34,9 +35,23 @@ from repro_torch.models.graph import (
     compile_snn,
     get_backend,
     register_backend,
+    stream_totals,
 )
-from repro_torch.models.snn import SNNConfig, init_snn, sparsify_params
+from repro_torch.models.snn import (
+    SNNConfig,
+    density_report,
+    init_snn,
+    param_count,
+    sparsify_params,
+)
 from repro_torch.plan import ExecutionPlan, PlanCache, compile_plan, run_streaming
+from repro_torch.fixed import (
+    FixedQuantFn,
+    build_golden,
+    fixed_encode_batch,
+    fixed_logit_scale,
+    quantize_codes,
+)
 from repro_torch.serve import AsyncAMCServeEngine, ServeStats
 from repro_torch.train.pruning import make_mask_pytree
 
@@ -58,9 +73,17 @@ __all__ = [
     "register_backend",
     "available_backends",
     "get_backend",
+    "stream_totals",
     "SNNConfig",
     "init_snn",
     "sparsify_params",
+    "param_count",
+    "density_report",
+    "FixedQuantFn",
+    "build_golden",
+    "fixed_encode_batch",
+    "fixed_logit_scale",
+    "quantize_codes",
     "make_mask_pytree",
     "params_from_numpy",
     "masks_from_numpy",

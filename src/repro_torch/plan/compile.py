@@ -3,11 +3,13 @@
 Port of ``repro/plan/compile.py``.  ``compile_plan(program, params,
 masks=..., assignment=..., device=...)`` resolves each layer against its
 assigned backend, derives the numpy artifacts (COO kernels, Algorithm-2
-schedules, block-sparse tilings, effective weights) and binds every cell
-to ``device`` — the card unless ``device="cpu"`` — in an immutable
-:class:`ExecutionPlan`.  Plans are hashed on (config, device, per-layer
-backend, effective weight, mask and LIF bytes): a second call with the
-same inputs returns the same plan object from the cache.
+schedules, block-sparse tilings, effective weights) and the cost-model
+priors, and binds every cell to ``device`` — the card unless
+``device="cpu"`` — in an immutable :class:`ExecutionPlan`.  Plans are
+hashed on (config, device, per-layer backend, effective weight, mask and
+LIF bytes): a second call with the same inputs returns the same plan
+object from the cache, and a fresh process reloads the numpy artifacts
+from the cache's disk tier instead of rebuilding them.
 
 ``assignment`` is one backend name or a ``{layer_name: backend}`` map
 (unlisted layers take ``default_backend``).  ``quant_fn`` (LSQ
@@ -26,8 +28,11 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.sparse_format import coo_to_dense
 from repro_torch.device import resolve_device
 from repro_torch.models.graph import (
+    BLOCK_K,
+    BLOCK_OC,
     KIND_CONV,
     KIND_FC,
     BoundProgram,
@@ -76,13 +81,78 @@ def _layer_key(spec: LayerSpec, layer_params, mask,
     return h.hexdigest()
 
 
+# ---------------------------------------------------------------------------
+# Cost-model priors (the order of the per-layer backend race).
+# ---------------------------------------------------------------------------
+
+def _tile_mults(w: np.ndarray, block_oc: int = BLOCK_OC,
+                block_k: int = BLOCK_K) -> int:
+    """MACs the static block-sparse layout executes per output position."""
+    kw, ic, oc = w.shape
+    flat = np.transpose(w, (2, 1, 0)).reshape(oc, ic * kw)
+    pad_oc = (-flat.shape[0]) % block_oc
+    pad_k = (-flat.shape[1]) % block_k
+    flat = np.pad(flat, ((0, pad_oc), (0, pad_k)))
+    tiles = flat.reshape(flat.shape[0] // block_oc, block_oc,
+                         flat.shape[1] // block_k, block_k)
+    nonempty = int((np.abs(tiles).sum(axis=(1, 3)) != 0).sum())
+    return max(1, nonempty) * block_oc * block_k
+
+
+def _layer_cost(spec: LayerSpec, backend: str, layer_params, w_eff,
+                artifacts: Optional[dict]) -> Dict[str, Any]:
+    """Analytic work per output position for each candidate backend
+    (relative units): priors, not measurements.  They order the per-layer
+    race and are its choice of last resort.  The exact Algorithm-2 reps
+    are used only when this compile assigned ``stream`` (which builds the
+    schedule); otherwise nnz + OC bounds them, whatever the shared
+    artifact cache holds.  The reference's ``pallas`` prior is ``cuda``
+    here, with the same value."""
+    artifacts = artifacts or {}
+    if spec.kind == KIND_CONV:
+        total = spec.kw * spec.ic * spec.oc
+        dense_w = w_eff
+        if dense_w is None and layer_params is not None and "coo" in layer_params:
+            dense_w = coo_to_dense(layer_params["coo"])
+        coo = artifacts.get("coo")
+        if coo is not None:
+            nnz = coo.nnz
+        elif dense_w is not None:
+            nnz = int((np.asarray(dense_w) != 0).sum())
+        else:
+            return {}
+        sched = artifacts.get("schedule") if backend == "stream" else None
+        # reps = nnz + extra + empty (paper Table III); without the built
+        # schedule, extra iterations are bounded by OC and empties by IC
+        reps = sched.reps if sched is not None else nnz + spec.oc
+        priors = {"dense": float(total), "goap": float(reps)}
+        if dense_w is not None:
+            priors["cuda"] = float(_tile_mults(np.asarray(dense_w)))
+        return {"nnz": int(nnz), "density": nnz / max(1, total),
+                "reps": int(reps), "backend_priors": priors}
+    if spec.kind == KIND_FC:
+        total = spec.din * spec.dout
+        nnz = int((np.asarray(w_eff) != 0).sum()) if w_eff is not None else total
+        # the WM method skips work, not slots (paper §V-C.2): every FC
+        # backend runs the same matmul shape, so the priors tie at the
+        # padded size and the conv layers decide heterogeneous splits
+        pad = (-spec.dout) % BLOCK_K
+        priors = {"dense": float(total), "goap": float(total),
+                  "cuda": float(spec.din * (spec.dout + pad))}
+        return {"nnz": nnz, "density": nnz / max(1, total),
+                "backend_priors": priors}
+    return {}
+
+
 @dataclasses.dataclass(frozen=True)
 class LayerPlan:
-    """One layer of an ExecutionPlan: spec + assigned backend + live cell."""
+    """One layer of an ExecutionPlan: spec + assigned backend + live cell,
+    and the layer's cost-model priors (empty for unweighted layers)."""
 
     spec: LayerSpec
     backend: str
     cell: LayerCell
+    cost: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +184,9 @@ class ExecutionPlan:
 
     def run_layered(self, frames: torch.Tensor):
         return self.bound.run(frames)
+
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        return self.run_streaming(frames)[0]
 
     @functools.cached_property
     def _stack(self):
@@ -175,6 +248,20 @@ class ExecutionPlan:
         return logits, {name: c["accumulations"]
                         for name, c in counters.items()
                         if "accumulations" in c}
+
+    def cost_priors(self) -> Dict[str, Dict[str, float]]:
+        """Per weighted layer: predicted relative cost per backend."""
+        return {lp.spec.name: dict(lp.cost.get("backend_priors", {}))
+                for lp in self.layers if lp.cost.get("backend_priors")}
+
+    def summary(self) -> dict:
+        return {
+            "digest": self.digest,
+            "assignment": dict(self.assignment),
+            "costs": {lp.spec.name: {k: v for k, v in lp.cost.items()
+                                     if k != "backend_priors"}
+                      for lp in self.layers if lp.cost},
+        }
 
 
 def _resolve_assignment(specs, assignment: Union[str, Mapping[str, str]],
@@ -255,10 +342,13 @@ def compile_plan(
         cell = get_backend(backend, spec.kind)(
             spec, lp, cfg=program.cfg, mask=mask, quant_fn=quant_fn,
             artifacts=artifacts, device=dev)
+        cost = {}
         if lkey is not None:
+            cost = _layer_cost(spec, backend, lp, w_eff, artifacts)
             if {k for k, v in artifacts.items() if v is not None} != before:
                 cache.put_artifacts(lkey, artifacts)
-        lplans.append(LayerPlan(spec=spec, backend=backend, cell=cell))
+        lplans.append(LayerPlan(spec=spec, backend=backend, cell=cell,
+                                cost=cost))
 
     label = (assignment if isinstance(assignment, str)
              else "per-layer:" + ",".join(f"{k}={v}" for k, v in

@@ -1,16 +1,26 @@
-"""Async AMC serving engine: queue -> micro-batcher -> worker loops.
+"""AMC serving engines: the sync baseline and the async serving tier.
 
-Port of ``AsyncAMCServeEngine`` and ``ServeStats`` from
-``repro/serve/engine.py``.  Requests queue in the
-:class:`~repro_torch.serve.batcher.MicroBatcher`, which flushes them as
-fixed-shape buckets; a worker thread runs each bucket through the serving
-step on the engine's device and resolves the requests' futures.
+Port of ``repro/serve/engine.py``.  :class:`AsyncAMCServeEngine` queues
+requests in the :class:`~repro_torch.serve.batcher.MicroBatcher`, which
+flushes them as fixed-shape buckets; a worker thread runs each bucket
+through the serving step on the engine's device and resolves the
+requests' futures.  :class:`AMCServeEngine` is the synchronous per-chunk
+loop: Σ-Δ encoding on the host, the plan's batch on the device.
 
-The serving step is ``iq -> plan.preferred_batch()(sigma_delta_encode_batch(
-iq, T))``: Σ-Δ encoding in torch ops on the device, then — for the default
-``cuda_fused`` backend — one launch of the whole-network kernel.  It runs
-eagerly (no ``torch.compile``, no CUDA graph).  The ``fixed`` backend
-encodes with the integer Q0.15 front end instead.
+The serving step is ``iq -> batch_fn(sigma_delta_encode_batch(iq, T))``:
+Σ-Δ encoding in torch ops on the device, then the plan's batch — one
+launch of the whole-network kernel for ``cuda_fused``, the layer-by-layer
+path for the other backends.  It runs eagerly (no ``torch.compile``, no
+CUDA graph).  The ``fixed`` backend encodes with the integer Q0.15 front
+end instead.
+
+Backend choice, as in the reference: ``backend="auto"`` (the default)
+races the candidates of :func:`~repro_torch.serve.autotune.
+default_candidates` — on the card ``dense``, ``goap``, ``cuda`` and
+``cuda_fused`` — on the largest bucket and pins the winner
+(``engine.autotune`` keeps the report); ``backend="per-layer"`` races
+them layer by layer and serves the winning assignment (``engine.perlayer``,
+``engine.assignment``); any other name binds that backend.
 
 Live activity gauges (``activity_gauges=True``, the default): when the
 plan's conv layers count in their step (``cuda_fused`` or ``stream``),
@@ -25,9 +35,8 @@ backends) or integer codes (``fixed``) through the same bind path;
 ``count_activity`` is the reference's host diagnostics mode (exact
 Table I/III event counts per real frame, on the CPU, outside the step).
 
-Not ported yet, and refused with ``NotImplementedError``: ``backend="auto"``
-and ``"per-layer"`` (autotuning), mesh serving, model versions and
-hot-swap.
+Not ported yet, and refused with ``NotImplementedError``: mesh serving,
+model versions and hot-swap.
 """
 from __future__ import annotations
 
@@ -46,15 +55,24 @@ from repro_torch.core.sparse_format import weight_mask_from_dense
 from repro_torch.data.pipeline import sigma_delta_encode_batch, sigma_delta_encode_np
 from repro_torch.device import resolve_device
 from repro_torch.fixed import assignment_uses_fixed, fixed_encode_batch, serving_quant_fn
+from repro_torch.fixed.golden import golden_encode_frames
 from repro_torch.models.graph import compile_snn
 from repro_torch.models.snn import SNNConfig, sparsify_params
 from repro_torch.obs.activity import ActivityObserver
 from repro_torch.obs.metrics import default_registry
 from repro_torch.obs.trace import begin_trace, tadd, tfinish
 from repro_torch.plan import compile_plan
+from repro_torch.serve.autotune import (
+    AutotuneReport,
+    PerLayerAutotuneReport,
+    autotune_backend,
+    autotune_per_layer,
+    default_candidates,
+)
 from repro_torch.serve.batcher import EngineClosed, MicroBatcher, QueueFull
 
-__all__ = ["AsyncAMCServeEngine", "ServeStats", "count_batch_activity"]
+__all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "ServeStats",
+           "count_batch_activity"]
 
 
 @dataclasses.dataclass
@@ -177,7 +195,85 @@ def count_batch_activity(stats: ServeStats, sparse, frames: np.ndarray,
             stats.fetched_bits += bits_fetched(c)
 
 
-_WAITING = ("auto", "per-layer")
+def _encoder(assignment):
+    """The on-device Σ-Δ encoder a plan assignment serves with: the
+    integer Q0.15 front end for the fixed tier, the float one otherwise."""
+    return (fixed_encode_batch if assignment_uses_fixed(assignment)
+            else sigma_delta_encode_batch)
+
+
+class AMCServeEngine:
+    """Synchronous per-chunk serving loop (the pre-tier baseline).
+
+    Each chunk of ``batch_size`` frames (the tail zero-padded) is Σ-Δ
+    encoded on the host in numpy (the integer golden encoder for
+    ``fixed``), then runs through the plan's ``preferred_batch()`` on
+    ``device``: the card unless ``device="cpu"``.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: SNNConfig,
+        masks=None,
+        batch_size: int = 32,
+        count_activity: bool = False,
+        backend: str = "goap",
+        lsq_scales=None,
+        quant_bits: int = 16,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.count_activity = count_activity
+        self.backend = backend
+        self.program = compile_snn(cfg)
+        # the COO form only feeds the activity-counting hooks
+        self.sparse = sparsify_params(params, masks) if count_activity else None
+        self.stats = ServeStats(backend=backend)
+        # artifacts come from the content-addressed plan cache: a restart
+        # on unchanged weights rebuilds nothing
+        self.plan = compile_plan(self.program, params, masks=masks,
+                                 quant_fn=serving_quant_fn(
+                                     lsq_scales, quant_bits, assignment=backend),
+                                 assignment=backend, device=self.device)
+        self._fwd = self.plan.preferred_batch()
+
+    def _encode(self, chunk: np.ndarray) -> np.ndarray:
+        """Host-side Σ-Δ encode; the fixed backend gets the integer path."""
+        if assignment_uses_fixed(self.backend):
+            return np.moveaxis(
+                golden_encode_frames(chunk, self.cfg.timesteps), 0, 1)
+        return sigma_delta_encode_np(chunk, self.cfg.timesteps)
+
+    def classify(self, iq: np.ndarray) -> np.ndarray:
+        """(N, 2, L) raw I/Q -> class ids (N,); batches internally."""
+        n = iq.shape[0]
+        preds = np.empty((n,), dtype=np.int32)
+        t0 = time.perf_counter()
+        for s in range(0, n, self.batch_size):
+            chunk = iq[s: s + self.batch_size]
+            pad = self.batch_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate(
+                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
+            frames = self._encode(chunk)
+            with torch.inference_mode():
+                logits = self._fwd(torch.as_tensor(
+                    frames, device=self.device)).cpu().numpy()
+            n_real = self.batch_size - pad
+            preds[s: s + n_real] = logits[:n_real].argmax(-1)
+            self.stats.record_batch(self.backend, padded=pad)
+            # latency is arrival (the classify call) to chunk completion,
+            # as the async tier's enqueue to completion
+            self.stats.record_latencies([time.perf_counter() - t0] * n_real)
+            if self.count_activity:
+                count_batch_activity(self.stats, self.sparse, frames[:n_real],
+                                     self.cfg)
+        self.stats.requests += n
+        self.stats.wall_s += time.perf_counter() - t0
+        return preds
 
 
 class AsyncAMCServeEngine:
@@ -186,15 +282,20 @@ class AsyncAMCServeEngine:
     Usage::
 
         engine = AsyncAMCServeEngine(params, SNNConfig(), masks,
-                                     backend="cuda_fused", max_batch=64)
+                                     max_batch=64)   # backend="auto"
         pred = engine.submit(iq_frame).result()   # (2, L) -> class id
         preds = engine.classify(iq_frames)        # (N, 2, L) -> (N,)
         engine.close()
 
     Runs on the card unless ``device="cpu"`` is given; without a CUDA
-    device it raises.  ``activity_gauges`` (default on) reports the live
-    Tables I/III gauges where the backend counts in its step
-    (``cuda_fused``, ``stream``); ``lsq_scales``/``quant_bits`` serve
+    device it raises.  ``backend="auto"`` races ``candidates`` (default:
+    :func:`~repro_torch.serve.autotune.default_candidates` for the device)
+    on the largest bucket and serves the winner; ``"per-layer"`` races
+    them layer by layer and serves the winning assignment through the
+    plan's preferred batch (the whole-network kernel when every layer won
+    ``cuda_fused``, else layer by layer).  ``activity_gauges`` (default
+    on) reports the live Tables I/III gauges where the plan counts in its
+    step (``cuda_fused``, ``stream``); ``lsq_scales``/``quant_bits`` serve
     quantized weights; ``count_activity`` adds host-side exact event
     counts to ``stats``.
     """
@@ -205,7 +306,7 @@ class AsyncAMCServeEngine:
         cfg: SNNConfig,
         masks=None,
         *,
-        backend: str = "cuda_fused",
+        backend: str = "auto",
         max_batch: Optional[int] = None,   # default 64 (or buckets[-1])
         max_delay_ms: float = 5.0,
         buckets: Optional[Sequence[int]] = None,
@@ -214,6 +315,9 @@ class AsyncAMCServeEngine:
         pace_ms: float = 0.0,
         priority_weights=None,
         warmup: bool = True,
+        candidates: Optional[Sequence[str]] = None,
+        autotune_reps: int = 2,
+        version_label: str = "default",
         name: Optional[str] = None,
         device=None,
         mesh=None,
@@ -222,31 +326,15 @@ class AsyncAMCServeEngine:
         quant_bits: int = 16,
         activity_gauges: bool = True,
     ):
-        if backend in _WAITING:
-            raise NotImplementedError(f"backend={backend!r} (autotuning) is "
-                                      "not ported yet; name a backend")
         if mesh is not None:
             raise NotImplementedError("mesh serving is not ported yet")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.name = name if name is not None else "engine"
-        self.backend = backend
+        self.version_label = version_label
         self.count_activity = count_activity
         self.program = compile_snn(cfg)
         self.sparse = sparsify_params(params, masks) if count_activity else None
-        # a fresh quant closure per bind: FixedQuantFn for the fixed tier
-        # (it calibrates without LSQ state), LSQ fake-quant for the float
-        # backends with LSQ state, None without
-        self.plan = compile_plan(self.program, params, masks=masks,
-                                 quant_fn=serving_quant_fn(
-                                     lsq_scales, quant_bits, assignment=backend),
-                                 assignment=backend, device=self.device)
-        self._encode = (fixed_encode_batch if assignment_uses_fixed(backend)
-                        else sigma_delta_encode_batch)
-        self.activity: Optional[ActivityObserver] = None
-        if activity_gauges and self.plan.supports_live_counters:
-            self.activity = ActivityObserver(self.plan, engine=self.name)
-        self._batch_fn = self.plan.preferred_batch()
 
         # registry instrumentation: idempotent creates on the process-wide
         # registry, children resolved here, off the hot path
@@ -255,9 +343,6 @@ class AsyncAMCServeEngine:
         self._m_requests = reg.counter(
             "repro_serve_requests_total", "Requests served (real frames)",
             ("engine",)).labels(engine=eng)
-        self._m_batches = reg.counter(
-            "repro_serve_batches_total", "Micro-batches served",
-            ("engine", "backend")).labels(engine=eng, backend=backend)
         self._m_padded = reg.counter(
             "repro_serve_padded_frames_total",
             "Zero-padded tail rows shipped in fixed-shape buckets",
@@ -291,6 +376,49 @@ class AsyncAMCServeEngine:
             max_delay_ms=max_delay_ms, buckets=buckets, max_queue=max_queue,
             pace_ms=pace_ms, priority_weights=priority_weights,
             obs_counters=obs_counters)
+
+        self.autotune: Optional[AutotuneReport] = None
+        self.perlayer: Optional[PerLayerAutotuneReport] = None
+        self.assignment: Optional[Dict[str, str]] = None
+        assignment = backend   # what the plan binds: a name or a layer map
+        if backend == "per-layer":
+            self.perlayer = autotune_per_layer(
+                self.program, params, self.batcher.max_batch, masks=masks,
+                candidates=candidates, reps=autotune_reps, device=self.device)
+            self.assignment = assignment = dict(self.perlayer.assignment)
+        elif backend == "auto":
+            if candidates is None and lsq_scales is not None:
+                # quantized serving: the integer `fixed` backend competes
+                candidates = default_candidates(quantized=True,
+                                                device=self.device)
+            # with LSQ state the race's binds carry the fake-quant weights,
+            # so the timings measure the quantized step that would serve
+            self.autotune = autotune_backend(
+                self.program, params,
+                (self.batcher.max_batch, ic0, cfg.input_width), masks=masks,
+                quant_fn=serving_quant_fn(lsq_scales, quant_bits),
+                candidates=candidates, reps=autotune_reps,
+                make_fn=lambda b: self._step_of(b.batch, b.backend),
+                device=self.device)
+            backend = assignment = self.autotune.choice
+        # a fresh quant closure per bind: FixedQuantFn for the fixed tier (it
+        # calibrates without LSQ state), LSQ fake-quant for the float
+        # backends with LSQ state, None without.  The race compiled through
+        # the same content-addressed cache, so its winner binds as a hit.
+        self.plan = compile_plan(self.program, params, masks=masks,
+                                 quant_fn=serving_quant_fn(
+                                     lsq_scales, quant_bits,
+                                     assignment=assignment),
+                                 assignment=assignment, device=self.device)
+        self.backend = backend
+        self._m_batches = reg.counter(
+            "repro_serve_batches_total", "Micro-batches served",
+            ("engine", "backend")).labels(engine=eng, backend=backend)
+        self._encode = _encoder(assignment)
+        self.activity: Optional[ActivityObserver] = None
+        if activity_gauges and self.plan.supports_live_counters:
+            self.activity = ActivityObserver(self.plan, engine=self.name)
+        self._batch_fn = self.plan.preferred_batch()
         self.stats = ServeStats(backend=backend)
 
         if warmup:  # run every bucket shape once before taking traffic
@@ -299,6 +427,8 @@ class AsyncAMCServeEngine:
 
         self._lock = threading.Lock()
         self._t_first_enqueue = float("inf")  # start of the serving window
+        self._t_started = time.perf_counter()
+        self._busy_s = 0.0  # worker seconds spent serving batches
         self._stop = threading.Event()
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
@@ -309,6 +439,13 @@ class AsyncAMCServeEngine:
             t.start()
 
     # -- serving step -------------------------------------------------------
+
+    def _step_of(self, batch_fn, assignment):
+        """``iq -> batch_fn(encode(iq))`` on the device: the serving step
+        of a raced candidate, as the autotuner times it."""
+        encode = _encoder(assignment)
+        osr = self.cfg.timesteps
+        return lambda iq: batch_fn(encode(iq, osr))
 
     def serve_step(self, iq: np.ndarray):
         """The served step: (B, IC, L) raw I/Q -> ((B, n_classes) logits,
@@ -343,8 +480,8 @@ class AsyncAMCServeEngine:
             batch = self.batcher.get_batch(timeout=0.1)
             if batch is None:
                 continue
+            t_step0 = time.perf_counter()
             try:
-                t_step0 = time.perf_counter()
                 logits, accs = self.serve_step(batch.frames)
                 t_step1 = time.perf_counter()
                 preds = logits.argmax(-1).astype(np.int32)
@@ -403,14 +540,63 @@ class AsyncAMCServeEngine:
                     tadd(r.trace, "error", detail=str(e))
                     tfinish(r.trace)
                     _fail_future(r.future, e)
+            finally:
+                with self._lock:
+                    self._busy_s += time.perf_counter() - t_step0
 
-    # -- not ported yet -----------------------------------------------------
+    # -- model versions (not ported yet) ------------------------------------
+
+    @property
+    def active_version(self) -> str:
+        """Label of the version that serves (the only one, so far)."""
+        return self.version_label
 
     def bind_version(self, *args, **kwargs):
         raise NotImplementedError("model versions are not ported yet")
 
     def swap_to(self, *args, **kwargs):
         raise NotImplementedError("hot-swap is not ported yet")
+
+    # -- fleet-facing signals -----------------------------------------------
+
+    @property
+    def n_workers(self) -> int:
+        return len(self._threads)
+
+    @property
+    def busy_s(self) -> float:
+        """Cumulative worker seconds spent serving batches."""
+        with self._lock:
+            return self._busy_s
+
+    def utilization(self) -> float:
+        """Busy fraction of the workers' capacity since construction."""
+        elapsed = time.perf_counter() - self._t_started
+        if elapsed <= 0:
+            return 0.0
+        return min(1.0, self.busy_s / (elapsed * self.n_workers))
+
+    def recent_latencies(self, k: int = 256) -> List[float]:
+        """The last ``k`` served requests' latencies (seconds), oldest first."""
+        with self._lock:
+            return list(self.stats.latencies_s[-k:])
+
+    def export_stats(self) -> dict:
+        """``stats.summary()`` plus the live queue and admission signals a
+        fleet router or autoscaler acts on."""
+        s = self.stats.summary()
+        s.update({
+            "queue_depth": self.batcher.qsize(),
+            "queue_depths_by_priority": self.batcher.qsizes(),
+            "n_expired": self.batcher.n_expired,
+            "n_rejected": self.batcher.n_rejected,
+            "n_cancelled": self.batcher.n_cancelled,
+            "workers": self.n_workers,
+            "busy_s": self.busy_s,
+            "utilization": self.utilization(),
+            "active_version": self.active_version,
+        })
+        return s
 
     # -- public API ---------------------------------------------------------
 

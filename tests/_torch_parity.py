@@ -6,6 +6,7 @@ through :mod:`repro_torch.convert`, so both packages compute on the same
 numbers.  Frames are drawn from numpy seeds.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -24,6 +25,28 @@ SMALL_REF = RefConfig(**SMALL_SPEC).validate()
 SMALL = SNNConfig(**SMALL_SPEC).validate()
 PAPER_REF = RefConfig()
 PAPER = SNNConfig()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_plan_cache_in_memory():
+    """Keep the port's plan cache off the disk for a whole test module.
+
+    ``tests/conftest.py`` makes only the reference's default cache
+    memory-only; the port's disk tier (``~/.cache/repro_torch/plans``)
+    would otherwise fill from every plan a test compiles, and stale
+    artifacts could hide a change to an artifact derivation.  Import this
+    fixture into every module that compiles plans: it installs a
+    memory-only default cache and turns the disk tier of every
+    ``PlanCache()`` made in the module off.
+    """
+    from repro_torch.plan import PlanCache, cache, set_default_cache
+
+    old = cache._default
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(cache.ENV_DIR, "")
+        set_default_cache(PlanCache())
+        yield
+    set_default_cache(old)
 
 
 def params_to_numpy(params):

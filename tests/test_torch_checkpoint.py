@@ -21,6 +21,7 @@ from _torch_parity import (
     ref_leaves,
     ref_trainer,
 )
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.train.checkpoint import CheckpointManager as RefCheckpointManager
 from repro_torch.core.lif import LIFParams
 from repro_torch.train.checkpoint import CheckpointManager

@@ -48,6 +48,20 @@ SMALL = SNNConfig(conv_specs=((3, 2, 4), (3, 4, 8)), pool=2,
                   timesteps=4, n_classes=5).validate()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def plan_cache_in_memory():
+    """Keep the port's plan cache off the disk while these tests run (the
+    jax-free twin of ``tests/_torch_parity.py``'s fixture)."""
+    from repro_torch.plan import PlanCache, cache, set_default_cache
+
+    old = cache._default
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(cache.ENV_DIR, "")
+        set_default_cache(PlanCache())
+        yield
+    set_default_cache(old)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -192,8 +206,8 @@ def test_engine_serves_through_the_fused_kernel(cuda):
     plan, params, masks = _plan(SMALL, 4, cuda)
     iq = _iq(SMALL, 13, 5)
     reset_launch_counts()
-    with AsyncAMCServeEngine(params, SMALL, masks, max_batch=8,
-                             warmup=False) as engine:
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda_fused",
+                             max_batch=8, warmup=False) as engine:
         preds = engine.classify(iq)
     assert launch_counts()["stream_fused_forward"] >= 2
     want = plan.batch(sigma_delta_encode_batch(
@@ -342,8 +356,8 @@ def test_engine_gauges_on_the_card_equal_stream_counters(cuda):
     try:
         _, params, masks = _plan(SMALL, 8, cuda)
         iq = _iq(SMALL, 13, 9)
-        with AsyncAMCServeEngine(params, SMALL, masks, max_batch=8,
-                                 name="card") as engine:
+        with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda_fused",
+                                 max_batch=8, name="card") as engine:
             engine.classify(iq)
             padded = engine.stats.padded_frames
     finally:
@@ -412,8 +426,9 @@ def test_lsq_served_through_the_fused_kernel(cuda):
     scales = init_lsq_scales(params, 8)
     iq = _iq(SNNConfig(), 16, 14)
     reset_launch_counts()
-    with AsyncAMCServeEngine(params, SNNConfig(), masks, max_batch=16,
-                             lsq_scales=scales, quant_bits=8) as engine:
+    with AsyncAMCServeEngine(params, SNNConfig(), masks, backend="cuda_fused",
+                             max_batch=16, lsq_scales=scales,
+                             quant_bits=8) as engine:
         preds = engine.classify(iq)
     assert launch_counts()["stream_fused_forward"] >= 1
     goap = compile_plan(compile_snn(SNNConfig()), params, masks=masks,
@@ -455,3 +470,74 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     g = torch.cat([x.cpu().reshape(-1) for x in tree_leaves(got[2])]).double()
     w = torch.cat([x.reshape(-1) for x in tree_leaves(want[2])]).double()
     assert float((g - w).norm() / w.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_auto_race_times_both_kernel_backends_on_the_card(cuda):
+    """The default backend races dense, goap, cuda and cuda_fused on the
+    card; both kernel backends are timed, none raises, and the winner
+    serves the goap backend's predictions."""
+    plan, params, masks = _plan(SMALL, 6, cuda, backend="goap")
+    iq = _iq(SMALL, 13, 7)
+    with AsyncAMCServeEngine(params, SMALL, masks, max_batch=8) as engine:
+        report = engine.autotune
+        preds = engine.classify(iq)
+    assert set(report.timings_ms) == {"dense", "goap", "cuda", "cuda_fused"}
+    assert not report.errors and not report.fell_back
+    assert engine.backend == report.choice
+    want = plan.bound.batch(sigma_delta_encode_batch(
+        torch.as_tensor(iq, device=cuda), SMALL.timesteps)).argmax(-1)
+    np.testing.assert_array_equal(preds, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_per_layer_race_times_both_kernel_backends_on_the_card(cuda):
+    plan, params, masks = _plan(SMALL, 6, cuda, backend="goap")
+    iq = _iq(SMALL, 13, 8)
+    reset_launch_counts()
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="per-layer",
+                             max_batch=8) as engine:
+        report = engine.perlayer
+        preds = engine.classify(iq)
+    counts = launch_counts()
+    for layer in ("conv1", "conv2", "fc1", "fc2"):
+        timings = report.timings_ms[layer]
+        assert {"cuda", "cuda_fused"} <= set(timings)
+        assert not report.errors[layer]
+        # cuda and cuda_fused time one cell: a kernel win is cuda_fused
+        if min(timings, key=timings.get) in ("cuda", "cuda_fused"):
+            assert report.assignment[layer] == "cuda_fused"
+    assert "cuda" not in report.assignment.values()
+    assert not report.fell_back
+    # the race ran each kernel backend's layers through their kernels
+    assert counts["goap_conv_block_sparse"] and counts["wm_fc_matmul"]
+    assert counts["lif_update_fused"]
+    if set(report.assignment.values()) == {"cuda_fused"}:
+        # an all-kernel assignment serves through the whole-network launch
+        assert counts["stream_fused_forward"]
+    want = plan.bound.batch(sigma_delta_encode_batch(
+        torch.as_tensor(iq, device=cuda), SMALL.timesteps)).argmax(-1)
+    np.testing.assert_array_equal(preds, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "per-layer"])
+def test_a_failing_kernel_fails_the_engine_on_the_card(cuda, backend):
+    """On the card a kernel backend that fails to build or launch must not
+    be raced around onto plain PyTorch: the engine's construction raises."""
+    from repro_torch.models import graph
+
+    _, params, masks = _plan(SMALL, 21, cuda, backend="goap")
+
+    def _boom(spec, layer_params, **kw):
+        raise RuntimeError("kernel did not build")
+
+    snapshot = dict(graph._REGISTRY)
+    graph.register_backend("cuda", "conv_lif", _boom)
+    try:
+        with pytest.raises(RuntimeError, match="kernel did not build"):
+            AsyncAMCServeEngine(params, SMALL, masks, backend=backend,
+                                max_batch=8)
+    finally:
+        graph._REGISTRY.clear()
+        graph._REGISTRY.update(snapshot)

@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from _torch_parity import PAPER, PAPER_REF, SMALL, SMALL_REF, setup
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro import fixed as ref_fixed
 from repro.models.graph import compile_snn as ref_compile_snn
 from repro.models.snn import SNNConfig as RefConfig

@@ -42,15 +42,22 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     assert "repro_torch.kernels.stream_fused" in result["imported"]
 
 
-# the modules of the measurement plane, the integer tier and the training
-# path, each imported alone in a fresh interpreter
+# the modules of the measurement plane, the integer tier, the training
+# path, the paper's table scripts, the backend race and the plan cache's disk
+# tier, each imported alone in a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
           "repro_torch.train.lsq", "repro_torch.data.radioml",
           "repro_torch.data.pipeline", "repro_torch.channel.impairments",
           "repro_torch.train.optimizer", "repro_torch.train.checkpoint",
           "repro_torch.train.trainer", "repro_torch.configs.saocds_amc",
-          "repro_torch.launch.train", "repro_torch.tree"]
+          "repro_torch.launch.train", "repro_torch.tree",
+          "repro_torch.bench.table1_goap_vs_sw",
+          "repro_torch.bench.table2_coo_overhead",
+          "repro_torch.bench.table3_accum_ratio",
+          "repro_torch.bench.table45_perf_model",
+          "repro_torch.bench.accuracy_sweep", "repro_torch.serve.autotune",
+          "repro_torch.plan.cache"]
 
 
 @pytest.mark.parametrize("module", _ALONE)

@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_parity import PAPER, PAPER_REF, SMALL, SMALL_REF, setup, spike_frames, t
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.api import compile_plan as ref_compile_plan, compile_snn as ref_compile_snn
 from repro.core.encoder import sigma_delta_encode as ref_sd_encode
 from repro.core.lif import init_lif_params as ref_init_lif

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import PAPER, PAPER_REF, SMALL, SMALL_REF, setup, t
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.obs import activity as ref_activity
 from repro.obs import metrics as ref_metrics
 from repro.plan import compile_plan as ref_compile_plan

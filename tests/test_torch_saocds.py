@@ -13,6 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from _torch_parity import PAPER, PAPER_REF, SMALL, SMALL_REF, setup, spike_frames, t
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.api import compile_snn as ref_compile_snn
 from repro.core import lif as ref_lif
 from repro.core import saocds as ref_saocds

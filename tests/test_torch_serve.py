@@ -9,9 +9,12 @@ import pytest
 import torch
 
 from _torch_parity import SMALL, SMALL_REF, setup
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
+from repro.serve import AMCServeEngine as RefSyncEngine
 from repro.serve import AsyncAMCServeEngine as RefEngine
 from repro_torch.data.pipeline import sigma_delta_encode_np
 from repro_torch.serve import (
+    AMCServeEngine,
     AsyncAMCServeEngine,
     DeadlineExceeded,
     EngineClosed,
@@ -200,11 +203,9 @@ def test_engine_needs_cuda_or_an_explicit_cpu(weights):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             AsyncAMCServeEngine(tparams, SMALL, tmasks, warmup=False)
-    for kw in ({"backend": "auto"}, {"backend": "per-layer"},
-               {"mesh": object()}):
-        with pytest.raises(NotImplementedError):
-            AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
-                                warmup=False, **kw)
+    with pytest.raises(NotImplementedError):
+        AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
+                            warmup=False, mesh=object())
     # activity counting and quantized serving are ported: they construct
     from repro_torch.train.lsq import init_lsq_scales
 
@@ -216,3 +217,84 @@ def test_engine_needs_cuda_or_an_explicit_cpu(weights):
     with _engine(weights, warmup=False) as engine:
         with pytest.raises(NotImplementedError):
             engine.swap_to("v2")
+
+
+# ---------------------------------------------------------------------------
+# the sync engine and the engine's fleet-facing accessors
+# ---------------------------------------------------------------------------
+
+def test_sync_engine_tail_padding(weights):
+    params, masks, tparams, tmasks = weights
+    iq = _iq(11)
+    engine = AMCServeEngine(tparams, SMALL, tmasks, batch_size=4,
+                            backend="dense", device="cpu")
+    preds = engine.classify(iq)
+    st = engine.stats
+    assert preds.shape == (11,)
+    assert st.requests == 11 and st.batches == 3
+    assert st.padded_frames == 1
+    assert len(st.latencies_s) == 11  # one latency per real request only
+    assert st.backend_batch_counts() == {"dense": 3}
+    ref = RefSyncEngine(params, SMALL_REF, masks=masks, batch_size=4,
+                        backend="dense")
+    np.testing.assert_array_equal(preds, ref.classify(iq))
+
+
+def test_async_engine_counts_activity_like_sync(weights):
+    params, masks, tparams, tmasks = weights
+    iq = _iq(6, seed=3)
+    sync = AMCServeEngine(tparams, SMALL, tmasks, batch_size=8,
+                          count_activity=True, backend="dense", device="cpu")
+    sync.classify(iq)
+    with _engine(weights, backend="dense", max_batch=8, warmup=False,
+                 count_activity=True) as engine:
+        engine.classify(iq)
+        st = engine.stats
+    # identical activity despite different batching and padding
+    assert st.accumulations == sync.stats.accumulations
+    assert st.fetched_bits == sync.stats.fetched_bits
+    assert st.accumulations > 0 and st.fetched_bits > 0
+    ref = RefSyncEngine(params, SMALL_REF, masks=masks, batch_size=8,
+                        count_activity=True, backend="dense")
+    ref.classify(iq)
+    assert sync.stats.accumulations == ref.stats.accumulations
+    assert sync.stats.fetched_bits == ref.stats.fetched_bits
+
+
+def test_sync_engine_count_path_unit(weights):
+    _, _, tparams, tmasks = weights
+    engine = AMCServeEngine(tparams, SMALL, tmasks, batch_size=2,
+                            count_activity=True, backend="goap", device="cpu")
+    engine.classify(_iq(1, seed=7))
+    st = engine.stats
+    assert st.requests == 1 and st.batches == 1
+    assert st.accumulations > 0
+    assert st.fetched_bits > st.accumulations  # >= 1 bit fetched per accum
+
+
+@pytest.mark.parametrize("backend", ["cuda_fused", "fixed"])
+def test_sync_engine_equals_async_engine(weights, backend):
+    _, _, tparams, tmasks = weights
+    iq = _iq(10, seed=12)
+    sync = AMCServeEngine(tparams, SMALL, tmasks, batch_size=4,
+                          backend=backend, device="cpu")
+    with _engine(weights, backend=backend, max_batch=4,
+                 warmup=False) as engine:
+        np.testing.assert_array_equal(sync.classify(iq), engine.classify(iq))
+
+
+def test_engine_fleet_accessors(weights):
+    with _engine(weights, max_batch=4, warmup=False,
+                 version_label="v1") as engine:
+        assert engine.n_workers == 1 and engine.active_version == "v1"
+        engine.classify(_iq(6, seed=4))
+        lat = engine.recent_latencies()
+        assert len(lat) == 6 and all(x > 0 for x in lat)
+        assert engine.recent_latencies(k=2) == lat[-2:]
+        assert engine.busy_s > 0 and 0.0 < engine.utilization() <= 1.0
+        s = engine.export_stats()
+    assert s["requests"] == 6 and s["workers"] == 1
+    assert s["active_version"] == "v1" and s["queue_depth"] == 0
+    assert s["queue_depths_by_priority"] == {"realtime": 0, "bulk": 0}
+    assert s["n_expired"] == s["n_rejected"] == s["n_cancelled"] == 0
+    assert s["busy_s"] > 0 and 0.0 < s["utilization"] <= 1.0

@@ -32,6 +32,7 @@ from _torch_parity import (
     ref_trainer,
     t,
 )
+from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.core import lif as ref_lif
 from repro.core.saocds import max_pool_spikes as ref_max_pool
 from repro.data import pipeline as ref_pipeline
