@@ -93,7 +93,23 @@ file; exits non-zero without them.  In order, it
 13. prints the paper's Tables I, II, III and IV-V and Fig. 8 with Table V
     retention at the reference scripts' defaults, with the seconds each
     took (``paper_phase``; Table I must match the paper);
-14. prints the whole run's seconds, one JSON line of per-kernel results,
+14. runs ``python -m repro_torch.launch.eval`` in process at full width
+    (``robustness_phase``: the default suite's 5 channel scenarios x SNRs
+    -10, 0, 10, 18 dB x ``cuda_fused,cuda,goap``, 64 frames a cell, plus
+    the clean section): exit 0, logits within 1e-5 and predictions equal
+    across the backends on all 24 x 64 frames, each kernel launched as
+    many times as the cells require, and for one cell of each of the 7
+    named scenarios the card's impaired frames equal to the CPU's within
+    1e-5; prints the accuracy surface and the wall seconds per backend;
+15. drives the model lifecycle (``lifecycle_phase``): two versions
+    published to a registry in a temporary directory, 512 requests
+    served through ``cuda_fused`` while the engine hot-swaps from v1 to
+    v2, no failed request, the requests after the swap served by v2 with
+    the plain ``goap`` backend's predictions on v2's weights, v2's plan
+    reloaded by a fresh registry from the disk tier without building an
+    artifact, then three canary-monitor rounds on ``urban_fading``
+    frames; prints the swap's report;
+16. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -444,7 +460,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-7 on ``device``; returns the kernels JSON object."""
+    """Phases 3-15 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -557,6 +573,10 @@ def run(device, timers: Timers, seed: int = SEED):
     run_plan_phase(program, params, masks, frames_b, device)
     print("phase: paper")
     run_paper_phase(device)
+    print("phase: robustness")
+    paths["robustness"] = run_robustness_phase(device)
+    print("phase: lifecycle")
+    paths["lifecycle"] = run_lifecycle_phase(device)
     for row in result["kernels"]:
         for path, counts in paths.items():
             row["launches_by_path"][path] = counts[row["name"]]
@@ -1215,6 +1235,311 @@ def run_paper_phase(device):
                 final_train_loss=res["final_train_loss"])
     line["card"] = nvidia_smi() if device.type == "cuda" else "cpu"
     print("paper_phase " + json.dumps(line))
+
+
+# the robustness phase: launch.eval's arguments (one batch of 64 frames per
+# cell and backend)
+EVAL_ARGS = ["--suite", "default", "--snr=-10,0,10,18", "--frames", "64",
+             "--backend", "cuda_fused,cuda,goap", "--seed", str(SEED),
+             "--density", str(DENSITY)]
+# the lifecycle phase: requests in all, in waves WAVE_GAP_S apart; the
+# hot-swap starts at wave SWAP_WAVE, the waves go on while it binds and
+# flips, and the last LATE_WAVES waves wait for its end
+LIFECYCLE_REQUESTS = 512
+WAVE = 16
+WAVE_GAP_S = 0.008
+SWAP_WAVE = 8
+LATE_WAVES = 4
+
+
+def run_robustness_phase(device) -> dict:
+    """``repro_torch.launch.eval.main`` at full width: the default suite (5
+    scenarios) x 4 SNRs x ``cuda_fused,cuda,goap``, 64 frames a cell, fresh
+    weights (seed 0, density 0.5), in process.  Gates: exit 0; logits
+    within 1e-5 across the backends; their predictions equal on every frame
+    of every cell (clean section included); each kernel launched as the
+    cells require; and, for one cell of each of the 7 named scenarios, the
+    card's impaired frames equal to the CPU's within 1e-5.  Returns the
+    window's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import SNNConfig
+    from repro_torch.channel import SCENARIOS, apply_scenario_np
+    from repro_torch.data.radioml import generate_batch
+    from repro_torch.eval import robustness, stable_cell_seed
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import eval as launch_eval
+
+    # every batch's logits per backend, in call order: the report keeps
+    # only accuracies and the largest difference, and the gate is on
+    # every frame
+    logits_by = {}
+    backend_step = robustness._backend_step
+
+    def recording_step(program, params, model_cfg, backend, *args):
+        step = backend_step(program, params, model_cfg, backend, *args)
+
+        def recorded(iq):
+            logits = step(iq)
+            logits_by.setdefault(backend, []).append(logits)
+            return logits
+        return recorded
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    out = pathlib.Path(work) / "robustness_report.json"
+    robustness._backend_step = recording_step
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = launch_eval.main(EVAL_ARGS + ["--out", str(out)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        report = json.loads(out.read_text())
+    finally:
+        robustness._backend_step = backend_step
+        shutil.rmtree(work, ignore_errors=True)
+    # per cell: one whole-network launch (cuda_fused), and per weighted
+    # layer one conv or FC launch and one LIF launch (cuda)
+    n_cells = (len(report["scenarios"]) + 1) * len(report["config"]["snr_grid"])
+    cfg = SNNConfig()
+    n_conv, n_fc = len(cfg.conv_specs), len(cfg.fc_specs)
+    want_counts = {"stream_fused_forward": n_cells,
+                   "goap_conv_block_sparse": n_conv * n_cells,
+                   "wm_fc_matmul": n_fc * n_cells,
+                   "lif_update_fused": (n_conv + n_fc) * n_cells}
+    print(f"  launch.eval exit {rc}; {n_cells} cells x "
+          f"{report['config']['frames_per_cell']} frames; launches {counts} "
+          f"(cells require {want_counts})")
+    if rc != 0:
+        raise AssertionError(f"launch.eval exited {rc}")
+    if counts != want_counts:
+        raise AssertionError(f"robustness window launched {counts}, not "
+                             f"{want_counts}")
+    if (sorted(report["wall_s_by_backend"]) != sorted(logits_by)
+            or len(logits_by) != 3):
+        raise AssertionError("a backend is missing from the evaluation")
+    agreement = report["agreement"]
+    if not agreement["max_abs_logit_diff"] <= ATOL:
+        raise AssertionError(f"backends disagree: {agreement}")
+    primary = logits_by["cuda_fused"]
+    n_frames = sum(len(lg) for lg in primary)
+    n_diff = {b: int(sum((lg.argmax(-1) != p.argmax(-1)).sum()
+                         for lg, p in zip(lgs, primary)))
+              for b, lgs in logits_by.items()}
+    max_diff = {b: float(max(np.abs(lg - p).max() for lg, p in zip(lgs, primary)))
+                for b, lgs in logits_by.items()}
+    print(f"  predictions over {n_frames} frames differing from cuda_fused's: "
+          f"{n_diff}; max |dlogit| against cuda_fused's {max_diff}")
+    if (n_frames != n_cells * report["config"]["frames_per_cell"]
+            or any(n_diff.values())):
+        raise AssertionError(f"backend predictions differ: {n_diff}")
+
+    # the channel on the card against the CPU, one cell per scenario
+    channel_err = {}
+    for name, sc in SCENARIOS.items():
+        seed = stable_cell_seed(name, 0.0)
+        iq, _, snrs = generate_batch(seed, 64, snr_db=0.0,
+                                     apply_channel=False)
+        card = apply_scenario_np(sc, iq, snrs, seed, device=device)
+        cpu = apply_scenario_np(sc, iq, snrs, seed, device="cpu")
+        channel_err[name] = float(np.abs(card - cpu).max())
+    print(f"  impaired frames, card vs CPU (max |err|): {channel_err}")
+    if not all(np.isfinite(e) and e <= ATOL for e in channel_err.values()):
+        raise AssertionError(f"the channel on the card disagrees with the "
+                             f"CPU's: {channel_err}")
+    print("robustness_phase " + json.dumps({
+        "seconds": seconds, "cells": n_cells,
+        "surface": report["surface"], "clean": {
+            snr: cell["accuracy"]["cuda_fused"]
+            for snr, cell in report["clean"].items()},
+        "wall_s_by_backend": report["wall_s_by_backend"],
+        "max_abs_logit_diff": agreement["max_abs_logit_diff"],
+        "max_abs_logit_diff_vs_cuda_fused": max_diff,
+        "channel_card_vs_cpu": channel_err, "launches": counts,
+        "card": nvidia_smi()}))
+    return counts
+
+
+def run_lifecycle_phase(device) -> dict:
+    """Publish v1 (seed 0) and v2 (seed 1) at density 0.5 to a registry in a
+    temporary directory (publishing v1 again must return v1), serve v1 with
+    ``AsyncAMCServeEngine(backend="cuda_fused")``, submit 512 requests in
+    waves of 16, 8 ms apart, and hot-swap to v2 from the registry from the
+    ninth wave on, while the waves go on.
+    Gates: no failed request; each served by v1 or v2 (by its trace); each
+    submitted after the swap's drain barrier served by v2 with the plain
+    goap backend's predictions on v2's weights; the whole window launches
+    the whole-network kernel and nothing else; and a fresh registry and
+    plan cache on the same directories reload v2's plan from the disk tier
+    without building an artifact.  Then a canary monitor runs three rounds
+    on urban_fading frames.  Returns the window's launches."""
+    import collections
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (AsyncAMCServeEngine, SNNConfig, compile_plan,
+                                 compile_snn, init_snn, make_mask_pytree)
+    from repro_torch.channel import make_frame_source
+    from repro_torch.data.pipeline import sigma_delta_encode_np
+    from repro_torch.deploy import (CanaryMonitor, ModelRegistry,
+                                    MonitorConfig, canary_router,
+                                    hot_swap_from_registry)
+    from repro_torch.fixed import serving_quant_fn
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.graph import artifact_build_count
+    from repro_torch.obs.trace import TraceLog
+    from repro_torch.plan import PlanCache, default_cache, set_default_cache
+
+    cfg = SNNConfig()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_lifecycle_"))
+    root, plans = str(work / "registry"), str(work / "plans")
+    old_cache = default_cache()
+    set_default_cache(PlanCache(plans))
+    t_phase = time.perf_counter()
+    try:
+        registry = ModelRegistry(root, device=device)
+        published = {}
+        for label, seed in (("production", 0), ("staging", 1)):
+            params = init_snn(seed, cfg)
+            t0 = time.perf_counter()
+            v = registry.publish("amc", params, cfg,
+                                 masks=make_mask_pytree(params, DENSITY),
+                                 assignment="cuda_fused", alias=label)
+            published[v.spec] = time.perf_counter() - t0
+        params = init_snn(0, cfg)
+        again = registry.publish("amc", params, cfg,
+                                 masks=make_mask_pytree(params, DENSITY),
+                                 assignment="cuda_fused")
+        print(f"  published {published} (seconds); v1 again -> {again.spec}")
+        if again.version != 1 or registry.versions("amc") != [1, 2]:
+            raise AssertionError("publishing v1 again minted a version")
+
+        v1 = registry.load("amc@production")
+        log = TraceLog(capacity=2 * LIFECYCLE_REQUESTS)
+        rng = np.random.default_rng(SEED)
+        iq = rng.normal(size=(LIFECYCLE_REQUESTS, cfg.conv_specs[0][1],
+                              cfg.input_width)).astype(np.float32)
+        reset_launch_counts()
+        engine = AsyncAMCServeEngine(v1.params, cfg, v1.masks,
+                                     backend="cuda_fused", max_batch=BATCH,
+                                     device=device, name="lifecycle",
+                                     version_label=v1.version.spec)
+        try:
+            sent = []    # (future, trace, submitted after the swap returned)
+            waves = np.split(iq, LIFECYCLE_REQUESTS // WAVE)
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                swap = None
+                for i, wave in enumerate(waves):
+                    if i == SWAP_WAVE:
+                        swap = pool.submit(hot_swap_from_registry, engine,
+                                           registry, "amc@staging")
+                    if i == len(waves) - LATE_WAVES:
+                        report = swap.result(timeout=600)
+                    after = swap is not None and swap.done()
+                    for frame in wave:
+                        trace = log.begin()
+                        sent.append((engine.submit(frame, trace=trace), trace,
+                                     after))
+                    time.sleep(WAVE_GAP_S)
+                results = np.array([f.result(timeout=600) for f, _, _ in sent])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            # each request's version, from its trace's step event
+            tags = [next((e.attrs["version"] for e in trace.events
+                          if e.name == "jit-step-start"), None)
+                    for _, trace, _ in sent]
+            served = dict(collections.Counter(tags))
+            late = np.array([after for _, _, after in sent])
+            print(f"  {len(results)} requests, 0 failed; served by {served}; "
+                  f"{int(late.sum())} submitted after the swap; launches "
+                  f"{counts}")
+            print(f"  swap {json.dumps(report.summary())}")
+            if set(tags) - {"amc@1", "amc@2"} or not late.any():
+                raise AssertionError(f"requests served by {served}")
+            if any(t != "amc@2" for t, a in zip(tags, late) if a):
+                raise AssertionError("a request submitted after the swap was "
+                                     "served by v1")
+            expect_launches(counts, {"stream_fused_forward"},
+                            "lifecycle served path")
+
+            # the canary monitor: v1 (the old production) as a 25% canary
+            # beside v2, shadow-evaluated on urban_fading frames
+            engine.set_router(canary_router("amc@2", "amc@1", 25.0))
+            monitor = CanaryMonitor(
+                engine, baseline="amc@2", canary="amc@1",
+                config=MonitorConfig(snr_bins=(-10.0, 0.0, 10.0, 18.0),
+                                     frames_per_bin=16, min_rounds=2,
+                                     score="agreement"),
+                frame_source=make_frame_source("urban_fading",
+                                               frame_len=cfg.input_width,
+                                               device=device),
+                registry=registry, canary_spec="amc@1")
+            decisions = [monitor.step() for _ in range(3)]
+            after_monitor = engine.classify(iq[:BATCH])
+            monitor_summary = monitor.summary()
+        finally:
+            engine.close()
+        print(f"  canary monitor decisions {decisions}: "
+              f"{monitor_summary['reason']}")
+
+        # v2's predictions by the plain goap backend, for the late requests
+        v2 = registry.load("amc@staging")
+        program = compile_snn(cfg)
+        goap = compile_plan(program, v2.params, masks=v2.masks,
+                            assignment="goap", device=device)
+        frames = torch.as_tensor(sigma_delta_encode_np(iq[late], cfg.timesteps),
+                                 device=device)
+        want = goap.bound.batch(frames).argmax(-1).cpu().numpy()
+        n_diff = int((results[late] != want).sum())
+        print(f"  late requests vs plain goap on v2's weights: {n_diff} of "
+              f"{int(late.sum())} differ")
+        if n_diff:
+            raise AssertionError("requests after the swap differ from goap "
+                                 "on v2's weights")
+        if after_monitor.shape != (BATCH,):
+            raise AssertionError("the engine stopped serving after the "
+                                 "monitor")
+
+        # a fresh registry and plan cache on the same directories: v2's plan
+        # comes from the disk tier, no artifact is built
+        fresh = PlanCache(plans)
+        built = artifact_build_count()
+        v2 = ModelRegistry(root, device=device).load("amc@staging")
+        plan = compile_plan(program, v2.params, masks=v2.masks,
+                            assignment="cuda_fused", cache=fresh,
+                            quant_fn=serving_quant_fn(None, 16,
+                                                      assignment="cuda_fused"),
+                            device=device)
+        rebuilt = artifact_build_count() - built
+        hits = fresh.stats["layer_disk_hits"]
+        print(f"  fresh registry: v2 plan {plan.digest[:12]} (manifest "
+              f"{v2.version.plan_digest[:12]}), {hits} layers from disk, "
+              f"{rebuilt} artifacts built")
+        if (plan.digest != v2.version.plan_digest or rebuilt
+                or hits != len(cfg.conv_specs)):
+            raise AssertionError("the fresh registry did not reload v2 from "
+                                 "the disk tier")
+    finally:
+        set_default_cache(old_cache)
+        shutil.rmtree(work, ignore_errors=True)
+    print("lifecycle_phase " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "publish_s": published,
+        "requests": len(results), "failed": 0, "served_by": served,
+        "submitted_after_swap": int(late.sum()), "swap": report.summary(),
+        "monitor": {"decisions": decisions, "reason": monitor_summary["reason"],
+                    "windowed_baseline": monitor_summary["windowed_baseline"],
+                    "windowed_canary": monitor_summary["windowed_canary"]},
+        "launches": counts, "card": nvidia_smi()}))
+    return counts
 
 
 def main() -> int:

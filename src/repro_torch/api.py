@@ -16,7 +16,9 @@ Backends: ``dense``, ``goap`` (plain torch), ``cuda`` and ``cuda_fused``
 ``pallas_fused``), ``stream`` (the Algorithm-2 interpreter with the
 Tables I/III counters) and ``fixed`` (the integer datapath).  Serving:
 :class:`AsyncAMCServeEngine`, with live activity gauges and LSQ /
-fixed-point quantized serving.
+fixed-point quantized serving.  Channel scenarios and the robustness
+sweep: :data:`SCENARIOS`, :func:`apply_scenario`,
+:func:`evaluate_robustness`.
 """
 from __future__ import annotations
 
@@ -45,6 +47,13 @@ from repro_torch.models.snn import (
     sparsify_params,
 )
 from repro_torch.plan import ExecutionPlan, PlanCache, compile_plan, run_streaming
+from repro_torch.channel import (
+    SCENARIOS,
+    ChannelScenario,
+    apply_scenario,
+    make_frame_source,
+)
+from repro_torch.eval import RobustnessConfig, evaluate_robustness
 from repro_torch.fixed import (
     FixedQuantFn,
     build_golden,
@@ -79,6 +88,12 @@ __all__ = [
     "sparsify_params",
     "param_count",
     "density_report",
+    "ChannelScenario",
+    "SCENARIOS",
+    "apply_scenario",
+    "make_frame_source",
+    "RobustnessConfig",
+    "evaluate_robustness",
     "FixedQuantFn",
     "build_golden",
     "fixed_encode_batch",

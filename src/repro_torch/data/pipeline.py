@@ -16,6 +16,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.channel.scenario import apply_scenario_np
 from repro_torch.core.encoder import encode_frames
 from repro_torch.data.radioml import RadioMLDataset
 from repro_torch.device import resolve_device
@@ -52,6 +53,14 @@ class SpikeBatchPipeline:
     as numpy, or with frames and labels as tensors on ``device`` when one
     is given (the reference's ``sharding``).
 
+    ``scenario`` (a :data:`repro_torch.channel.SCENARIOS` name or a
+    :class:`~repro_torch.channel.ChannelScenario`) inserts a
+    channel-augmentation stage: the generator emits clean modulated frames
+    and the producer runs them through the scenario's channel at each
+    frame's SNR before Σ-Δ encoding, deterministic in ``(seed, batch
+    index, scenario)``.  The channel runs on ``device``: the card unless
+    ``device="cpu"``.
+
     ``close()`` ends the stream for consumers too: a sentinel is left in
     the queue so a consumer blocked in (or arriving at) ``__next__`` gets
     ``StopIteration`` instead of hanging on a queue whose producer has
@@ -70,21 +79,30 @@ class SpikeBatchPipeline:
         device=None,
         scenario=None,
     ):
-        if scenario is not None:
-            raise NotImplementedError(
-                "scenario= needs the channel scenarios, which are not ported "
-                "yet (ROADMAP Queue 1, the channel step)")
         self.osr = osr
         self.device = None if device is None else resolve_device(device)
-        self._ds = iter(RadioMLDataset(batch_size, seed=seed, snr_db=snr_db))
+        self._scenario = scenario
+        self._seed = seed
+        # the channel stage's device, resolved up front so a missing card
+        # raises here and not in the producer thread
+        self._channel_device = (None if scenario is None
+                                else resolve_device(device))
+        self._ds = iter(RadioMLDataset(batch_size, seed=seed, snr_db=snr_db,
+                                       apply_channel=scenario is None))
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._worker, daemon=True)
         self._thread.start()
 
     def _worker(self):
+        step = 0
         while not self._stop.is_set():
             iq, labels, snrs = next(self._ds)
+            if self._scenario is not None:
+                iq = apply_scenario_np(self._scenario, iq, snrs,
+                                       self._seed + step,
+                                       device=self._channel_device)
+            step += 1
             frames = sigma_delta_encode_np(iq, self.osr)
             while not self._stop.is_set():
                 try:

@@ -17,11 +17,17 @@ from repro_torch.serve.batcher import (
     Request,
     ServeFuture,
 )
-from repro_torch.serve.engine import AMCServeEngine, AsyncAMCServeEngine, ServeStats
+from repro_torch.serve.engine import (
+    AMCServeEngine,
+    AsyncAMCServeEngine,
+    BoundVersion,
+    ServeStats,
+)
 
 __all__ = [
     "AMCServeEngine",
     "AsyncAMCServeEngine",
+    "BoundVersion",
     "ServeStats",
     "MicroBatcher",
     "MicroBatch",

@@ -35,8 +35,14 @@ backends) or integer codes (``fixed``) through the same bind path;
 ``count_activity`` is the reference's host diagnostics mode (exact
 Table I/III event counts per real frame, on the CPU, outside the step).
 
-Not ported yet, and refused with ``NotImplementedError``: mesh serving,
-model versions and hot-swap.
+Model versions (the deploy subsystem's hooks): the async engine serves
+from a label -> :class:`BoundVersion` table.  The primary label takes all
+traffic unless a router (canary / A/B split) is installed;
+:meth:`~AsyncAMCServeEngine.bind_version` binds a new version off the hot
+path and :meth:`~AsyncAMCServeEngine.swap_to` flips the primary between
+micro-batches, each batch pinned to the version that started it.
+
+Not ported yet, and refused with ``NotImplementedError``: mesh serving.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ import concurrent.futures
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -71,8 +77,8 @@ from repro_torch.serve.autotune import (
 )
 from repro_torch.serve.batcher import EngineClosed, MicroBatcher, QueueFull
 
-__all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "ServeStats",
-           "count_batch_activity"]
+__all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "BoundVersion",
+           "ServeStats", "count_batch_activity"]
 
 
 @dataclasses.dataclass
@@ -276,6 +282,37 @@ class AMCServeEngine:
         return preds
 
 
+@dataclasses.dataclass
+class BoundVersion:
+    """One bound model version in the async engine's serving table.
+
+    Each version carries its own plan, serving step and
+    :class:`ServeStats`, so a canary's latency and accuracy are observable
+    apart from the production baseline's.  ``serve_step`` maps (B, IC, L)
+    raw I/Q (numpy) to ``(logits, {conv_name: (B,) accumulations} or
+    None)`` on the host; :meth:`step` keeps the logits.
+    """
+
+    label: str
+    backend: str
+    serve_step: Callable = dataclasses.field(repr=False)
+    plan: Any = dataclasses.field(repr=False)
+    sparse: Any = dataclasses.field(default=None, repr=False)
+    stats: ServeStats = dataclasses.field(default_factory=ServeStats)
+    # start of *this version's* serving window (earliest enqueue among the
+    # requests it served): a late-bound canary's wall_s is not diluted by
+    # traffic that predates its bind
+    t_first: float = float("inf")
+    # live gauges: the ActivityObserver that the step's counters feed, or
+    # None when the step returns bare logits
+    activity: Optional[ActivityObserver] = dataclasses.field(default=None,
+                                                             repr=False)
+
+    def step(self, iq: np.ndarray) -> np.ndarray:
+        """(B, IC, L) raw I/Q -> (B, n_classes) logits, on the host."""
+        return self.serve_step(iq)[0]
+
+
 class AsyncAMCServeEngine:
     """Serving tier: ``submit`` -> micro-batcher -> worker loops -> futures.
 
@@ -331,7 +368,6 @@ class AsyncAMCServeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.name = name if name is not None else "engine"
-        self.version_label = version_label
         self.count_activity = count_activity
         self.program = compile_snn(cfg)
         self.sparse = sparsify_params(params, masks) if count_activity else None
@@ -377,6 +413,8 @@ class AsyncAMCServeEngine:
             pace_ms=pace_ms, priority_weights=priority_weights,
             obs_counters=obs_counters)
 
+        self._candidates = candidates
+        self._autotune_reps = autotune_reps
         self.autotune: Optional[AutotuneReport] = None
         self.perlayer: Optional[PerLayerAutotuneReport] = None
         self.assignment: Optional[Dict[str, str]] = None
@@ -387,45 +425,39 @@ class AsyncAMCServeEngine:
                 candidates=candidates, reps=autotune_reps, device=self.device)
             self.assignment = assignment = dict(self.perlayer.assignment)
         elif backend == "auto":
-            if candidates is None and lsq_scales is not None:
-                # quantized serving: the integer `fixed` backend competes
-                candidates = default_candidates(quantized=True,
-                                                device=self.device)
-            # with LSQ state the race's binds carry the fake-quant weights,
-            # so the timings measure the quantized step that would serve
-            self.autotune = autotune_backend(
-                self.program, params,
-                (self.batcher.max_batch, ic0, cfg.input_width), masks=masks,
-                quant_fn=serving_quant_fn(lsq_scales, quant_bits),
-                candidates=candidates, reps=autotune_reps,
-                make_fn=lambda b: self._step_of(b.batch, b.backend),
-                device=self.device)
+            self.autotune = self._race(params, masks, lsq_scales, quant_bits)
             backend = assignment = self.autotune.choice
         # a fresh quant closure per bind: FixedQuantFn for the fixed tier (it
         # calibrates without LSQ state), LSQ fake-quant for the float
         # backends with LSQ state, None without.  The race compiled through
         # the same content-addressed cache, so its winner binds as a hit.
-        self.plan = compile_plan(self.program, params, masks=masks,
-                                 quant_fn=serving_quant_fn(
-                                     lsq_scales, quant_bits,
-                                     assignment=assignment),
-                                 assignment=assignment, device=self.device)
+        plan = compile_plan(self.program, params, masks=masks,
+                            quant_fn=serving_quant_fn(
+                                lsq_scales, quant_bits, assignment=assignment),
+                            assignment=assignment, device=self.device)
         self.backend = backend
+        self.quant_bits = quant_bits
+        self.activity_gauges = activity_gauges
         self._m_batches = reg.counter(
             "repro_serve_batches_total", "Micro-batches served",
-            ("engine", "backend")).labels(engine=eng, backend=backend)
-        self._encode = _encoder(assignment)
-        self.activity: Optional[ActivityObserver] = None
-        if activity_gauges and self.plan.supports_live_counters:
-            self.activity = ActivityObserver(self.plan, engine=self.name)
-        self._batch_fn = self.plan.preferred_batch()
+            ("engine", "backend"))
         self.stats = ServeStats(backend=backend)
-
-        if warmup:  # run every bucket shape once before taking traffic
-            for b in self.batcher.buckets:
-                self.serve_step(np.zeros((b, ic0, cfg.input_width), np.float32))
-
         self._lock = threading.Lock()
+
+        # serving table: label -> BoundVersion.  The primary takes all
+        # traffic unless a router is installed (deploy.router); a hot-swap
+        # (deploy.swap) binds a new version off-thread, then flips _primary
+        # between micro-batches.
+        first = self._bound(version_label, backend, plan, assignment,
+                            self.sparse)
+        if warmup:  # run every bucket shape once before taking traffic
+            self._warm(first)
+        self._versions: Dict[str, BoundVersion] = {version_label: first}
+        self._primary = version_label
+        self._router: Optional[Callable[[], str]] = None
+        self.plan = plan
+        self.activity = first.activity
+
         self._t_first_enqueue = float("inf")  # start of the serving window
         self._t_started = time.perf_counter()
         self._busy_s = 0.0  # worker seconds spent serving batches
@@ -447,31 +479,95 @@ class AsyncAMCServeEngine:
         osr = self.cfg.timesteps
         return lambda iq: batch_fn(encode(iq, osr))
 
-    def serve_step(self, iq: np.ndarray):
-        """The served step: (B, IC, L) raw I/Q -> ((B, n_classes) logits,
-        {conv_name: (B,) accumulations} or None), both on the host.
+    def _race(self, params, masks, lsq_scales, quant_bits) -> AutotuneReport:
+        """The whole-network race of the engine's candidates on the largest
+        bucket, each timed through the serving step it would serve with."""
+        candidates = self._candidates
+        if candidates is None and lsq_scales is not None:
+            # quantized serving: the integer `fixed` backend competes
+            candidates = default_candidates(quantized=True, device=self.device)
+        ic0 = self.cfg.conv_specs[0][1]
+        # with LSQ state the race's binds carry the fake-quant weights, so
+        # the timings measure the quantized step that would serve
+        return autotune_backend(
+            self.program, params,
+            (self.batcher.max_batch, ic0, self.cfg.input_width), masks=masks,
+            quant_fn=serving_quant_fn(lsq_scales, quant_bits),
+            candidates=candidates, reps=self._autotune_reps,
+            make_fn=lambda b: self._step_of(b.batch, b.backend),
+            device=self.device)
 
-        With gauges on, logits and counters leave the device in one copy.
-        """
-        with torch.inference_mode():
-            x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
-            frames = self._encode(x, self.cfg.timesteps)
-            if self.activity is None:
-                return self._batch_fn(frames).cpu().numpy(), None
-            logits, accs = self.plan.batch_counters(frames)
-            names = list(accs)
-            packed = torch.cat([logits] + [accs[n][:, None] for n in names],
-                               dim=1)
-            host = packed.cpu().numpy()
-        n_classes = logits.shape[1]
-        return host[:, :n_classes], {n: host[:, n_classes + i]
-                                     for i, n in enumerate(names)}
+    def _bound(self, label: str, backend: str, plan, assignment,
+               sparse) -> BoundVersion:
+        """A :class:`BoundVersion` serving ``plan``: Σ-Δ encode on the
+        device (the integer front end for the fixed tier), then the plan's
+        preferred batch; with live gauges, where the plan counts in its
+        step, its counters leave the device in the logits' copy."""
+        encode = _encoder(assignment)
+        osr = self.cfg.timesteps
+        device = self.device
+        activity = (ActivityObserver(plan, engine=self.name)
+                    if self.activity_gauges and plan.supports_live_counters
+                    else None)
+        batch_fn = plan.preferred_batch()
+
+        def serve_step(iq: np.ndarray):
+            with torch.inference_mode():
+                x = torch.as_tensor(iq, dtype=torch.float32, device=device)
+                frames = encode(x, osr)
+                if activity is None:
+                    return batch_fn(frames).cpu().numpy(), None
+                logits, accs = plan.batch_counters(frames)
+                names = list(accs)
+                packed = torch.cat([logits] + [accs[n][:, None]
+                                               for n in names], dim=1)
+                host = packed.cpu().numpy()
+            n_classes = logits.shape[1]
+            return host[:, :n_classes], {n: host[:, n_classes + i]
+                                         for i, n in enumerate(names)}
+
+        return BoundVersion(label=label, backend=backend,
+                            serve_step=serve_step, plan=plan, sparse=sparse,
+                            stats=ServeStats(backend=backend),
+                            activity=activity)
+
+    def _warm(self, ver: BoundVersion) -> None:
+        """Run every bucket shape once, ending in a synchronise."""
+        ic0 = self.cfg.conv_specs[0][1]
+        for b in self.batcher.buckets:
+            ver.serve_step(np.zeros((b, ic0, self.cfg.input_width), np.float32))
+
+    def serve_step(self, iq: np.ndarray):
+        """The primary version's served step: (B, IC, L) raw I/Q ->
+        ((B, n_classes) logits, {conv_name: (B,) accumulations} or None),
+        both on the host.  With gauges on, logits and counters leave the
+        device in one copy."""
+        with self._lock:
+            ver = self._versions[self._primary]
+        return ver.serve_step(iq)
 
     def step(self, iq: np.ndarray) -> np.ndarray:
         """(B, IC, L) raw I/Q -> (B, n_classes) logits, on the host."""
         return self.serve_step(iq)[0]
 
     # -- worker loop --------------------------------------------------------
+
+    def _route(self) -> BoundVersion:
+        """The version serving the next batch (the router's pick, else the
+        primary).  A router naming a removed label, or one that raises,
+        degrades to the primary: routing never takes the worker down.  The
+        table is read under the engine lock, so it never interleaves with a
+        swap_to / remove_version pair."""
+        label: Optional[str] = None
+        router = self._router
+        if router is not None:
+            try:
+                label = router()
+            except Exception:  # noqa: BLE001 — a broken router must not
+                label = None   # take the serving loop down with it
+        with self._lock:
+            ver = self._versions.get(label) if label is not None else None
+            return ver if ver is not None else self._versions[self._primary]
 
     def _worker(self) -> None:
         if self.device.type == "cuda":
@@ -480,42 +576,53 @@ class AsyncAMCServeEngine:
             batch = self.batcher.get_batch(timeout=0.1)
             if batch is None:
                 continue
-            t_step0 = time.perf_counter()
+            t_busy0 = time.perf_counter()
             try:
-                logits, accs = self.serve_step(batch.frames)
+                # the version is pinned per batch: a hot-swap flipping the
+                # primary mid-service never retargets an in-flight batch.
+                # Routing runs inside the covered block, so a failure fails
+                # the batch's futures instead of stranding them.
+                ver = self._route()
+                t_step0 = time.perf_counter()
+                logits, accs = ver.serve_step(batch.frames)
                 t_step1 = time.perf_counter()
                 preds = logits.argmax(-1).astype(np.int32)
                 n_real = batch.n_real
                 if accs is not None:   # padded tail rows never counted
-                    self.activity.observe(accs, n_real)
+                    ver.activity.observe(accs, n_real)
                 # the diagnostics mode runs before the futures resolve, so
                 # a caller reading ``stats`` after its results sees them
                 counted: Optional[ServeStats] = None
-                if self.count_activity:
+                if self.count_activity and ver.sparse is not None:
                     counted = ServeStats()
                     frames = sigma_delta_encode_np(batch.frames[:n_real],
                                                    self.cfg.timesteps)
-                    count_batch_activity(counted, self.sparse, frames,
+                    count_batch_activity(counted, ver.sparse, frames,
                                          self.cfg)
                 t_done = time.perf_counter()
                 with self._lock:
+                    # serving windows: the engine's from its first enqueue,
+                    # the version's from the first request it served
                     batch_first = min(r.t_enqueue for r in batch.requests)
                     self._t_first_enqueue = min(self._t_first_enqueue,
                                                 batch_first)
-                    st = self.stats
-                    st.requests += n_real
-                    st.record_batch(self.backend,
-                                    queue_depth=batch.queue_depth,
-                                    padded=batch.n_padded)
-                    st.record_latencies(t_done - r.t_enqueue
-                                        for r in batch.requests)
-                    st.wall_s = max(st.wall_s, t_done - self._t_first_enqueue)
-                    if counted is not None:
-                        st.accumulations += counted.accumulations
-                        st.fetched_bits += counted.fetched_bits
+                    ver.t_first = min(ver.t_first, batch_first)
+                    for st, t0 in ((self.stats, self._t_first_enqueue),
+                                   (ver.stats, ver.t_first)):
+                        st.requests += n_real
+                        st.record_batch(ver.backend,
+                                        queue_depth=batch.queue_depth,
+                                        padded=batch.n_padded)
+                        st.record_latencies(t_done - r.t_enqueue
+                                            for r in batch.requests)
+                        st.wall_s = max(st.wall_s, t_done - t0)
+                        if counted is not None:
+                            st.accumulations += counted.accumulations
+                            st.fetched_bits += counted.fetched_bits
                 # registry mirrors (family-locked; outside the engine lock)
                 self._m_requests.inc(n_real)
-                self._m_batches.inc()
+                self._m_batches.labels(engine=self.name,
+                                       backend=ver.backend).inc()
                 self._m_padded.inc(batch.n_padded)
                 self._m_qdepth.set(batch.queue_depth)
                 for r in batch.requests:
@@ -524,7 +631,7 @@ class AsyncAMCServeEngine:
                         # the step is batch-wide: every traced rider shares
                         # the same start/end stamps
                         r.trace.add("jit-step-start", t=t_step0,
-                                    backend=self.backend)
+                                    version=ver.label, backend=ver.backend)
                         r.trace.add("jit-step-end", t=t_step1)
                 for i, r in enumerate(batch.requests):
                     if r.future.set_running_or_notify_cancel():
@@ -542,20 +649,107 @@ class AsyncAMCServeEngine:
                     _fail_future(r.future, e)
             finally:
                 with self._lock:
-                    self._busy_s += time.perf_counter() - t_step0
+                    self._busy_s += time.perf_counter() - t_busy0
 
-    # -- model versions (not ported yet) ------------------------------------
+    # -- model lifecycle (the deploy subsystem's hooks) ---------------------
 
     @property
     def active_version(self) -> str:
-        """Label of the version that serves (the only one, so far)."""
-        return self.version_label
+        """Label of the primary (default-traffic) version."""
+        return self._primary
 
-    def bind_version(self, *args, **kwargs):
-        raise NotImplementedError("model versions are not ported yet")
+    def versions(self) -> Dict[str, BoundVersion]:
+        """Snapshot of the serving table (label -> BoundVersion)."""
+        with self._lock:
+            return dict(self._versions)
 
-    def swap_to(self, *args, **kwargs):
-        raise NotImplementedError("hot-swap is not ported yet")
+    def get_version(self, label: str) -> BoundVersion:
+        with self._lock:
+            return self._versions[label]
+
+    def version_stats(self) -> Dict[str, ServeStats]:
+        with self._lock:
+            return {k: v.stats for k, v in self._versions.items()}
+
+    def bind_version(self, label: str, params, masks=None, *,
+                     backend: Optional[str] = None, lsq_scales=None,
+                     quant_bits: Optional[int] = None,
+                     warmup: bool = True) -> BoundVersion:
+        """Compile and register a new model version under ``label``.
+
+        Safe while serving: the plan bind and the per-bucket warm-up run in
+        the caller's thread (the plan cache is content-addressed), and only
+        the table insert takes the engine lock, so the workers keep serving
+        the current versions.  The new version takes no traffic until
+        :meth:`swap_to` or a router targets it.
+
+        ``backend=None`` inherits the engine's serving backend (including
+        a ``per-layer`` assignment); ``backend="auto"`` races the engine's
+        candidates on the new weights.  Nothing here falls back: on the
+        card a kernel backend that fails to bind or launch raises.
+        """
+        if backend is None:
+            backend = self.backend
+        bits = quant_bits if quant_bits is not None else self.quant_bits
+        if backend == "per-layer":
+            if not self.assignment:
+                # serving a uniform backend while reporting "per-layer"
+                # would misstate what runs: the layer race only exists on
+                # engines constructed with it
+                raise ValueError(
+                    "backend='per-layer' requires an engine constructed "
+                    "with backend='per-layer' (no autotuned assignment to "
+                    "inherit); pass an explicit backend instead")
+            assignment = dict(self.assignment)
+        else:
+            if backend == "auto":
+                backend = self._race(params, masks, lsq_scales, bits).choice
+            assignment = backend
+        plan = compile_plan(self.program, params, masks=masks,
+                            quant_fn=serving_quant_fn(lsq_scales, bits,
+                                                      assignment=assignment),
+                            assignment=assignment, device=self.device)
+        sparse = (sparsify_params(params, masks) if self.count_activity
+                  else None)
+        ver = self._bound(label, backend, plan, assignment, sparse)
+        if warmup:  # every bucket once, so the flip never stalls
+            self._warm(ver)
+        with self._lock:
+            self._versions[label] = ver
+        return ver
+
+    def swap_to(self, label: str) -> str:
+        """Atomically make ``label`` the primary version; returns the old.
+
+        A table-pointer update between micro-batches: in-flight batches
+        complete on the version that started them, and the next batch any
+        worker picks up serves from the new primary.
+        """
+        with self._lock:
+            if label not in self._versions:
+                raise KeyError(
+                    f"no bound version {label!r} (bound: "
+                    f"{sorted(self._versions)})")
+            old, self._primary = self._primary, label
+            ver = self._versions[label]
+            self.backend = ver.backend
+            self.plan = ver.plan
+            self.activity = ver.activity
+            self.stats.backend = ver.backend
+        return old
+
+    def remove_version(self, label: str) -> None:
+        """Drop a non-primary version from the serving table."""
+        with self._lock:
+            if label == self._primary:
+                raise ValueError(
+                    f"cannot remove the primary version {label!r}; "
+                    "swap_to another version first")
+            self._versions.pop(label, None)
+
+    def set_router(self, router: Optional[Callable[[], str]]) -> None:
+        """Install (or clear, with None) the per-batch version router."""
+        self._router = router
 
     # -- fleet-facing signals -----------------------------------------------
 

@@ -19,7 +19,8 @@ Port of ``repro/train/trainer.py``, the paper's training recipe:
   resume, and a step-time straggler monitor.
 
 Each step generates its batch on the host (numpy RadioML, then the numpy
-Σ-Δ encoder) and copies it to the device once.  The trainer runs on the
+Σ-Δ encoder) and copies it to the device once; with ``augment_scenario``
+the clean frames first run through that channel scenario on the device.  The trainer runs on the
 card unless ``device="cpu"`` is passed.  It expects float32 products: keep
 ``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default).
 
@@ -37,6 +38,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.channel.scenario import apply_scenario_np
 from repro_torch.data.pipeline import sigma_delta_encode_np
 from repro_torch.data.radioml import N_CLASSES, generate_batch
 from repro_torch.device import resolve_device
@@ -68,7 +70,8 @@ class TrainerConfig:
     # quantization
     use_lsq: bool = False
     quant_bits: int = 16
-    # channel-scenario augmentation: waits for the channel scenarios
+    # channel-scenario augmentation: a repro_torch.channel scenario name or
+    # ChannelScenario; batches are generated clean, then run through it
     augment_scenario: Optional[Any] = None
     # fault tolerance
     ckpt_dir: Optional[str] = None
@@ -108,10 +111,6 @@ def _requiring_grad(tree):
 
 class SNNTrainer:
     def __init__(self, model_cfg: SNNConfig, cfg: TrainerConfig, device=None):
-        if cfg.augment_scenario is not None:
-            raise NotImplementedError(
-                "augment_scenario needs the channel scenarios, which are not "
-                "ported yet (ROADMAP Queue 1, the channel step)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -135,13 +134,19 @@ class SNNTrainer:
 
     # -- data ---------------------------------------------------------------
 
-    def _batch(self, seed: int, snr_db: Optional[float]):
+    def _batch(self, seed: int, snr_db: Optional[float], scenario=None):
         """One host batch, encoded, then copied to the device once:
         ``(frames (B, T, 2, L), labels (B,) int64 on the device, labels as
-        numpy)``."""
-        iq, labels, _ = generate_batch(
+        numpy)``.  With a ``scenario`` the frames are generated clean and
+        run through its channel (on the trainer's device, drawn from
+        ``seed``) instead of the legacy dataset channel."""
+        iq, labels, snrs = generate_batch(
             seed, self.cfg.batch_size, snr_db,
-            frame_len=self.model_cfg.input_width, classes=self._classes)
+            frame_len=self.model_cfg.input_width, classes=self._classes,
+            apply_channel=scenario is None)
+        if scenario is not None:
+            iq = apply_scenario_np(scenario, iq, snrs, seed,
+                                   device=self.device)
         frames = sigma_delta_encode_np(iq, self.cfg.osr)
         return (torch.from_numpy(frames).to(self.device),
                 torch.from_numpy(labels.astype(np.int64)).to(self.device),
@@ -254,7 +259,8 @@ class SNNTrainer:
             t0 = time.perf_counter()
             self._maybe_reprune()
             frames, labels, _ = self._batch(
-                self.cfg.seed * 7_919 + self.step, self.cfg.snr_db)
+                self.cfg.seed * 7_919 + self.step, self.cfg.snr_db,
+                self.cfg.augment_scenario)
             (self.params, self.opt_state, self.lsq_scales, loss, acc,
              _) = self._train_step(self.params, self.opt_state,
                                    self.lsq_scales, self.masks, frames, labels)
@@ -281,15 +287,13 @@ class SNNTrainer:
 
     def evaluate(self, n_batches: int = 4, snr_db: Optional[float] = None,
                  seed: int = 10_000, scenario=None) -> float:
-        """Accuracy over fresh batches (``dense`` through ``apply_batch``)."""
-        if scenario is not None:
-            raise NotImplementedError(
-                "scenario evaluation needs the channel scenarios, which are "
-                "not ported yet (ROADMAP Queue 1, the channel step)")
+        """Accuracy over fresh batches (``dense`` through ``apply_batch``);
+        ``scenario`` evaluates under an injected :mod:`repro_torch.channel`
+        condition instead of the legacy dataset channel."""
         program = compile_snn(self.model_cfg)
         correct, total = 0, 0
         for b in range(n_batches):
-            frames, _, labels = self._batch(seed + b, snr_db)
+            frames, _, labels = self._batch(seed + b, snr_db, scenario)
             with torch.no_grad():
                 logits = program.apply_batch(self.params, frames, "dense",
                                              masks=self.masks,

@@ -541,3 +541,81 @@ def test_a_failing_kernel_fails_the_engine_on_the_card(cuda, backend):
     finally:
         graph._REGISTRY.clear()
         graph._REGISTRY.update(snapshot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["static_awgn", "urban_fading",
+                                  "doppler_drift", "iq_impaired",
+                                  "adjacent_interferer", "rician_los",
+                                  "timing_drift"])
+def test_channel_on_the_card_equals_the_cpu(cuda, name):
+    """The draws come from host numpy streams, so a seed impairs frames
+    alike on the card and on the CPU, within rounding."""
+    from repro_torch.channel import apply_scenario_np
+    from repro_torch.data.radioml import generate_batch
+
+    iq, _, snrs = generate_batch(5, 64, apply_channel=False)
+    card = apply_scenario_np(name, iq, snrs, 17, device=cuda)
+    cpu = apply_scenario_np(name, iq, snrs, 17, device="cpu")
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_robustness_kernel_backends_agree_on_the_card(cuda):
+    from repro_torch.eval import RobustnessConfig, evaluate_robustness
+
+    params = init_snn(3, SMALL)
+    reset_launch_counts()
+    report = evaluate_robustness(
+        params, SMALL, RobustnessConfig(
+            suite="quick", snr_grid=(-10.0, 10.0), frames_per_cell=16,
+            backends=("cuda_fused", "cuda", "goap")),
+        masks=make_mask_pytree(params, 0.5), device=cuda)
+    assert report["agreement"]["max_abs_logit_diff"] <= 1e-5
+    assert all(n > 0 for n in launch_counts().values())
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_the_card_serves_the_new_version(cuda):
+    from repro_torch.data.pipeline import sigma_delta_encode_np
+    from repro_torch.deploy import hot_swap
+
+    p1, p2 = init_snn(0, SMALL), init_snn(1, SMALL)
+    m2 = make_mask_pytree(p2, 0.5)
+    iq = _iq(SMALL, 32, 4)
+    with AsyncAMCServeEngine(p1, SMALL, make_mask_pytree(p1, 0.5),
+                             backend="cuda_fused", max_batch=8,
+                             version_label="v1") as engine:
+        report = hot_swap(engine, p2, m2, label="v2")
+        preds = engine.classify(iq)
+    assert report.drained and report.backend == "cuda_fused"
+    goap = compile_plan(compile_snn(SMALL), p2, masks=m2, assignment="goap",
+                        device=cuda)
+    want = goap.bound.batch(torch.as_tensor(
+        sigma_delta_encode_np(iq, SMALL.timesteps), device=cuda))
+    np.testing.assert_array_equal(preds, want.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_a_failing_kernel_fails_bind_version_on_the_card(cuda):
+    """A new version bound to a kernel backend that raises fails the bind:
+    nothing falls back to a plain backend."""
+    from repro_torch.models import graph
+
+    _, params, masks = _plan(SMALL, 22, cuda, backend="goap")
+
+    def _boom(spec, layer_params, **kw):
+        raise RuntimeError("kernel did not build")
+
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="goap",
+                             max_batch=8) as engine:
+        snapshot = dict(graph._REGISTRY)
+        graph.register_backend("cuda", "conv_lif", _boom)
+        try:
+            with pytest.raises(RuntimeError, match="kernel did not build"):
+                engine.bind_version("v2", params, masks, backend="cuda")
+        finally:
+            graph._REGISTRY.clear()
+            graph._REGISTRY.update(snapshot)
+        assert set(engine.versions()) == {"default"}

@@ -22,11 +22,8 @@ REF_EXPORTS = sorted([SRC / "repro" / "api.py"]
                         if "__all__" in p.read_text()])
 
 # exporting reference module -> the names it exports whose defining
-# modules are not ported yet (ROADMAP Queue 1: channel scenarios and
-# eval/, item 4; deploy/, fleet/ and model versions, item 5; the obs
+# modules are not ported yet (ROADMAP Queue 1: fleet/, item 5; the obs
 # analysis plane, item 6; distributed/, item 7)
-_CHANNEL = ["ChannelScenario", "SCENARIOS", "apply_scenario",
-            "make_frame_source"]
 _OBS_PLANE = [
     "MetricsServer", "alert_health_check", "engine_health_check",
     "engine_ready_probe", "Series", "TimeSeriesRecorder",
@@ -38,29 +35,13 @@ _OBS_PLANE = [
     "log_file_sink", "set_default_alert_manager", "get_default_alert_manager",
     "to_perfetto", "write_perfetto", "validate_perfetto"]
 WAITING = {
-    "repro.api": _CHANNEL + ["RobustnessConfig", "evaluate_robustness"],
-    "repro.channel": _CHANNEL + [
-        "SUITES", "get_scenario", "suite_scenarios", "apply_scenario_np",
-        "scenario_fn", "stable_seed", "to_complex", "to_iq", "avg_power",
-        "normalize_power", "awgn", "carrier_offset", "phase_noise",
-        "timing_offset", "iq_imbalance", "multipath_fading",
-        "interferer_tones"],
-    "repro.deploy": [
-        "ModelRegistry", "ModelVersion", "LoadedModel",
-        "publish_from_checkpoint", "publish_from_trainer", "SwapReport",
-        "hot_swap", "hot_swap_async", "hot_swap_from_registry",
-        "WeightedRouter", "canary_router", "CanaryMonitor", "MonitorConfig",
-        "WindowResult"],
     "repro.distributed": [
         "activation_constraints", "constrain_acts", "constrain_logits",
         "act_pspec", "decode_state_specs", "dp_axes", "logits_pspec",
         "named_tree", "partition_params", "train_batch_spec"],
-    "repro.eval": ["RobustnessConfig", "evaluate_robustness", "format_report",
-                   "stable_cell_seed"],
     "repro.fleet": ["FleetRouter", "Replica", "ShedError", "engine_factory",
                     "merge_stats", "Autoscaler", "AutoscaleTick"],
     "repro.obs": _OBS_PLANE,
-    "repro.serve": ["BoundVersion"],
 }
 
 

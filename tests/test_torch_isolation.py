@@ -43,8 +43,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 
 
 # the modules of the measurement plane, the integer tier, the training
-# path, the paper's table scripts, the backend race and the plan cache's disk
-# tier, each imported alone in a fresh interpreter
+# path, the paper's table scripts, the backend race, the plan cache's disk
+# tier, the channel scenarios, the robustness evaluation and the model
+# lifecycle, each imported alone in a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
           "repro_torch.train.lsq", "repro_torch.data.radioml",
@@ -57,7 +58,12 @@ _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.bench.table3_accum_ratio",
           "repro_torch.bench.table45_perf_model",
           "repro_torch.bench.accuracy_sweep", "repro_torch.serve.autotune",
-          "repro_torch.plan.cache"]
+          "repro_torch.plan.cache", "repro_torch.channel",
+          "repro_torch.channel.scenario", "repro_torch.eval",
+          "repro_torch.eval.robustness", "repro_torch.launch.eval",
+          "repro_torch.deploy", "repro_torch.deploy.registry",
+          "repro_torch.deploy.router", "repro_torch.deploy.swap",
+          "repro_torch.deploy.monitor"]
 
 
 @pytest.mark.parametrize("module", _ALONE)

@@ -214,9 +214,15 @@ def test_engine_needs_cuda_or_an_explicit_cpu(weights):
         with AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
                                  warmup=False, **kw) as engine:
             assert engine.plan is not None
-    with _engine(weights, warmup=False) as engine:
-        with pytest.raises(NotImplementedError):
+    # model versions are ported: a bound version takes over on swap_to
+    with _engine(weights, warmup=False, version_label="v1") as engine:
+        with pytest.raises(KeyError):
             engine.swap_to("v2")
+        engine.bind_version("v2", tparams, tmasks, backend="goap",
+                            warmup=False)
+        assert engine.swap_to("v2") == "v1" and engine.active_version == "v2"
+        assert engine.backend == "goap" and set(engine.versions()) == {"v1",
+                                                                       "v2"}
 
 
 # ---------------------------------------------------------------------------

@@ -111,8 +111,24 @@ def test_pipeline_on_a_device_yields_tensors_and_refuses_scenarios():
         assert isinstance(labels, torch.Tensor) and labels.shape == (2,)
     finally:
         pipe.close()
-    with pytest.raises(NotImplementedError, match="channel"):
-        pipeline.SpikeBatchPipeline(batch_size=2, scenario="static_awgn")
+    # the channel-augmentation stage: clean frames through the scenario's
+    # channel at each frame's SNR, drawn from (seed, batch index)
+    pipe = pipeline.SpikeBatchPipeline(batch_size=2, osr=2, seed=5,
+                                       device="cpu", prefetch=1,
+                                       scenario="doppler_drift")
+    try:
+        frames, labels, snrs = next(pipe)
+    finally:
+        pipe.close()
+    iq, want_labels, want_snrs = radioml.generate_batch(5, 2,
+                                                        apply_channel=False)
+    from repro_torch.channel import apply_scenario_np
+
+    want = pipeline.sigma_delta_encode_np(
+        apply_scenario_np("doppler_drift", iq, want_snrs, 5, device="cpu"), 2)
+    np.testing.assert_array_equal(frames.numpy(), want)
+    np.testing.assert_array_equal(labels.numpy(), want_labels)
+    np.testing.assert_array_equal(snrs, want_snrs)
 
 
 def test_pipeline_yields_batches_then_stops_after_close():
@@ -417,9 +433,24 @@ def test_trainer_and_launcher_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         SNNTrainer(snn.SNNConfig(**TRAIN_SPEC), TrainerConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "saocds-amc", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="channel"):
-        SNNTrainer(snn.SNNConfig(**TRAIN_SPEC),
-                   TrainerConfig(augment_scenario="static_awgn"), device="cpu")
+    # channel-scenario augmentation and evaluation are ported: on the CPU
+    # the trainer trains and evaluates under a scenario's channel
+    tr = SNNTrainer(snn.SNNConfig(**TRAIN_SPEC),
+                    TrainerConfig(total_steps=2, batch_size=4, osr=2,
+                                  augment_scenario="urban_fading"),
+                    device="cpu")
+    hist = tr.run(steps=2, log_every=1)
+    assert np.isfinite(hist["loss"]).all() and len(hist["loss"]) == 2
+    acc = tr.evaluate(n_batches=1, snr_db=10.0, scenario="doppler_drift")
+    assert 0.0 <= acc <= 1.0
+    from repro_torch.channel import apply_scenario_np
+
+    iq, _, snrs = radioml.generate_batch(3, 4, 10.0, frame_len=128,
+                                         apply_channel=False)
+    frames, _, _ = tr._batch(3, 10.0, "doppler_drift")
+    want = pipeline.sigma_delta_encode_np(
+        apply_scenario_np("doppler_drift", iq, snrs, 3, device="cpu"), 2)
+    np.testing.assert_array_equal(frames.numpy(), want)
 
 
 def test_launcher_trains_on_the_cpu_and_refuses_other_archs(tmp_path, capsys):
