@@ -21,7 +21,9 @@ file; exits non-zero without them.  In order, it
 5. runs the main path's two paths, each with every launch count set to 0
    just before it and read just after: an
    ``AsyncAMCServeEngine(backend="cuda_fused")`` answers 256 submitted
-   requests, which must launch the whole-network kernel and nothing else;
+   requests, which must launch the whole-network kernel and nothing else,
+   by CUDA-graph replay alone (one eager launch per captured bucket, the
+   warm-up before its capture, and one launch per replay);
    then the same plan runs one batch layer by layer, which must launch
    each per-layer kernel and not the whole-network one.  The engine's
    predictions must equal the plain-torch ``goap`` backend's on the
@@ -109,7 +111,24 @@ file; exits non-zero without them.  In order, it
     reloaded by a fresh registry from the disk tier without building an
     artifact, then three canary-monitor rounds on ``urban_fading``
     frames; prints the swap's report;
-16. prints the whole run's seconds, one JSON line of per-kernel results,
+16. holds the served step captured in CUDA graphs against the same step
+    run op by op (``capture_phase``): for ``cuda_fused`` with gauges on
+    and off, ``cuda``, ``fixed`` (16-bit LSQ) and ``goap``, every bucket
+    captured at warm-up, every bucket's replay bit-equal to the eager
+    step on the same frames (logits, and counters with gauges), 20
+    replays launching exactly 20 times what the capture recorded; prints
+    the step host to host, captured and eager, in turns;
+17. runs the serving CLI in process (``serve_cli_phase``: ``python -m
+    repro_torch.launch.serve --arch saocds-amc --batch 64 --requests 512
+    --replicas 2 --metrics-port 0 --slo default --trace-dump ...
+    --perfetto-dump ... --hold-s 5``): during the hold ``/readyz`` answers
+    200, ``/metrics`` counts the 512 requests across both replicas, and
+    ``/healthz``, ``/timeseries`` and ``/alerts`` parse; every trace runs
+    submit -> complete with admits on both replicas, the Perfetto dump
+    validates, no request failed, and the CLI's predictions equal the
+    plain ``goap`` backend's; then one replica serves the same requests
+    for the 1-replica frames/s and p50/p99;
+18. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -442,11 +461,20 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
         futures = [engine.submit(frame) for frame in iq]
         preds = np.array([f.result(timeout=600) for f in futures])
         stats = engine.stats.summary()
+        graphs = engine.get_version(engine.active_version).graphs
+        captured = len(graphs.shapes()) if graphs is not None else 0
+        replays = graphs.replays if graphs is not None else 0
     torch.cuda.synchronize()
     served = launch_counts()
     print(f"main path, served: {len(preds)} requests in "
-          f"{time.perf_counter() - t0:.3f} s; launches {served}")
+          f"{time.perf_counter() - t0:.3f} s; launches {served}; "
+          f"{captured} graphs captured, {replays} replays")
     expect_launches(served, {"stream_fused_forward"}, "served path")
+    # served only by graph replay: one eager launch per captured shape
+    # (the warm-up before its capture), every other launch a replay's
+    if graphs is None or served["stream_fused_forward"] != captured + replays:
+        raise AssertionError("the served cuda_fused step did not run by "
+                             "graph replay alone")
 
     reset_launch_counts()
     layered = engine.plan.bound.batch(frames_b)
@@ -460,7 +488,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-15 on ``device``; returns the kernels JSON object."""
+    """Phases 3-17 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -577,6 +605,11 @@ def run(device, timers: Timers, seed: int = SEED):
     paths["robustness"] = run_robustness_phase(device)
     print("phase: lifecycle")
     paths["lifecycle"] = run_lifecycle_phase(device)
+    print("phase: capture")
+    paths["capture"] = run_capture_phase(params, masks, cfg, iq, device,
+                                         timers)
+    print("phase: serve_cli")
+    paths["serve_cli"] = run_serve_cli_phase(cfg, device)
     for row in result["kernels"]:
         for path, counts in paths.items():
             row["launches_by_path"][path] = counts[row["name"]]
@@ -1539,6 +1572,288 @@ def run_lifecycle_phase(device) -> dict:
                     "windowed_baseline": monitor_summary["windowed_baseline"],
                     "windowed_canary": monitor_summary["windowed_canary"]},
         "launches": counts, "card": nvidia_smi()}))
+    return counts
+
+# the served steps held captured against eager: (backend, live gauges)
+CAPTURED = (("cuda_fused", True), ("cuda_fused", False), ("cuda", False),
+            ("fixed", False), ("goap", False))
+CAPTURE_REPLAYS = 20
+
+
+def run_capture_phase(params, masks, cfg, iq, device, timers) -> dict:
+    """The served step by CUDA-graph replay against the same step run op
+    by op, for each of ``CAPTURED``: the engine's warm-up captured every
+    bucket; on every bucket the replay's logits (and counters, with gauges
+    on) equal the eager step's bit for bit on the same frames; a window of
+    ``CAPTURE_REPLAYS`` replays launches exactly what the capture recorded,
+    that many times; and the step host to host, captured and eager, in
+    turns.  Returns the replay windows' launches, summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.train.lsq import init_lsq_scales
+
+    ic0, width = cfg.conv_specs[0][1], cfg.input_width
+    iq_b = iq[:BATCH]
+    line, windows = {}, {}
+    t_phase = time.perf_counter()
+    for backend, gauges in CAPTURED:
+        name = backend + ("+gauges" if gauges else "")
+        scales = init_lsq_scales(params, 16) if backend == "fixed" else None
+        with AsyncAMCServeEngine(params, cfg, masks, backend=backend,
+                                 max_batch=BATCH, device=device,
+                                 name=f"capture-{name}", lsq_scales=scales,
+                                 activity_gauges=gauges) as engine:
+            graphs = engine.get_version(engine.active_version).graphs
+            buckets = engine.batcher.buckets
+            if graphs is None or set(graphs.shapes()) != {
+                    (b, ic0, width) for b in buckets}:
+                raise AssertionError(f"{name}: the warm-up did not capture "
+                                     f"every bucket {buckets}")
+            for b in buckets:
+                got, want = graphs(iq[:b]), graphs.eager(iq[:b])
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(f"{name}, bucket {b}: the replay "
+                                         "differs from the eager step")
+            width_out = cfg.n_classes + (len(cfg.conv_specs) if gauges else 0)
+            if got.shape != (BATCH, width_out):
+                raise AssertionError(f"{name}: output {got.shape}")
+            per_replay = graphs.launches((BATCH, ic0, width))
+            if backend.startswith("cuda") and not per_replay:
+                raise AssertionError(f"{name}: the graph launches no kernel")
+            reset_launch_counts()
+            for _ in range(CAPTURE_REPLAYS):
+                graphs(iq_b)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want_counts = {k: CAPTURE_REPLAYS * per_replay.get(k, 0)
+                           for k in counts}
+            if counts != want_counts:
+                raise AssertionError(f"{name}: {CAPTURE_REPLAYS} replays "
+                                     f"launched {counts}, not {want_counts}")
+            for k, n in counts.items():
+                windows[k] = windows.get(k, 0) + n
+            steps = [(mode, timers.host(lambda: engine.serve_step(iq_b))
+                      if mode == "captured" else
+                      timers.host(lambda: graphs.eager(iq_b)))
+                     for mode in ("captured", "eager", "eager", "captured")]
+        line[name] = {
+            "buckets": list(buckets), "bit_equal": True,
+            "launches_per_replay": per_replay,
+            "step_ms_captured": [ms for m, ms in steps if m == "captured"],
+            "step_ms_eager": [ms for m, ms in steps if m == "eager"]}
+        print(f"  {name}: every bucket bit-equal; {CAPTURE_REPLAYS} replays "
+              f"launched {counts}; step ms captured "
+              f"{line[name]['step_ms_captured']}, eager "
+              f"{line[name]['step_ms_eager']}")
+    print("capture_phase " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "backends": line,
+        "card": nvidia_smi()}))
+    return windows
+
+
+CLI_REQUESTS = 512
+CLI_HOLD_S = 5.0
+
+
+def _run_cli(argv, until: str = ""):
+    """``repro_torch.launch.serve.main(argv)`` in a thread, its standard
+    output captured.  With ``until``, returns (thread, output, result)
+    once a line containing it was printed (the CLI then holds); without,
+    after the CLI returned."""
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch.launch import serve
+
+    out, result = io.StringIO(), {}
+
+    def cli():
+        try:
+            with contextlib.redirect_stdout(out):
+                result["rc"] = serve.main(argv)
+        except BaseException as e:  # noqa: BLE001 — reported by the caller
+            result["error"] = repr(e)
+
+    thread = threading.Thread(target=cli, name="serve-cli")
+    thread.start()
+    deadline = time.perf_counter() + 600
+    while until and until not in out.getvalue():
+        if not thread.is_alive() or time.perf_counter() > deadline:
+            raise AssertionError(f"the CLI stopped before {until!r}: "
+                                 f"{result}\n{out.getvalue()}")
+        time.sleep(0.05)
+    if not until:
+        thread.join(timeout=600)
+    return thread, out, result
+
+
+def _cli_stats(text: str) -> dict:
+    import re
+
+    head = re.search(r"^requests=(\d+) batches=(\d+) backend=(\S+) .*"
+                     r"\((\d+) frames/s\)$", text, re.M)
+    lat = re.search(r"^latency p50=(\S+)ms p95=(\S+)ms p99=(\S+)ms", text,
+                    re.M)
+    if head is None or lat is None:
+        raise AssertionError(f"the CLI printed no report:\n{text}")
+    return {"requests": int(head.group(1)), "batches": int(head.group(2)),
+            "backend": head.group(3), "frames_per_s": int(head.group(4)),
+            "p50_ms": float(lat.group(1)), "p95_ms": float(lat.group(2)),
+            "p99_ms": float(lat.group(3))}
+
+
+def run_serve_cli_phase(cfg, device) -> dict:
+    """``python -m repro_torch.launch.serve --arch saocds-amc`` in process
+    at full width: 512 requests at batch 64 through two replicas behind the
+    fleet router, a live metrics endpoint, the default SLOs, a trace dump
+    and a Perfetto dump, held 5 s.  During the hold: ``/readyz`` answers
+    200; ``/metrics`` counts 512 served requests across both replicas;
+    ``/healthz``, ``/timeseries`` and ``/alerts`` parse.  Then every trace
+    runs submit -> complete with admits on both replicas, the Perfetto file
+    validates, no request failed, and the CLI's predictions (from the
+    traces) equal the plain goap backend's on the CLI's frames.  Then one
+    replica serves the same 512 requests with the same observability
+    (without the hold; a deadline no request reaches keeps the host-side
+    activity counting off, as on the fleet) for the 1-replica figures.
+    Returns the 2-replica run's launches."""
+    import re
+    import shutil
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (compile_plan, compile_snn, init_snn,
+                                 make_mask_pytree)
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.data.radioml import generate_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.obs import (disable_tracing, metrics,
+                                 set_default_alert_manager,
+                                 set_default_recorder, validate_perfetto)
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    trace_path, perfetto_path = work / "trace.json", work / "perfetto.json"
+    common = ["--arch", "saocds-amc", "--batch", str(BATCH),
+              "--requests", str(CLI_REQUESTS), "--device", str(device),
+              "--metrics-port", "0", "--slo", "default",
+              "--trace-dump", str(trace_path),
+              "--perfetto-dump", str(perfetto_path)]
+    registry = metrics.MetricsRegistry()
+    old = metrics.set_default_registry(registry)
+    scraped = {}
+    t_phase = time.perf_counter()
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:   # a 503 still has a body
+            return e.code, e.read()
+
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        thread, out, result = _run_cli(common + [
+            "--replicas", "2", "--hold-s", str(CLI_HOLD_S)],
+            until="perfetto:")
+        serve_s = time.perf_counter() - t0
+        base = re.search(r"metrics: (http://\S+)/metrics",
+                         out.getvalue()).group(1)
+        for path in ("/readyz", "/healthz", "/metrics", "/timeseries",
+                     "/alerts"):
+            scraped[path] = get(base + path)
+        thread.join(timeout=CLI_HOLD_S + 60)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        text = out.getvalue()
+        dump = json.loads(trace_path.read_text())
+        doc = json.loads(perfetto_path.read_text())
+        disable_tracing()        # the CLI leaves the process's tracer on
+        set_default_recorder(None)
+        set_default_alert_manager(None)
+        _, out1, result1 = _run_cli(common + ["--replicas", "1",
+                                              "--deadline-ms", "600000"])
+        text1 = out1.getvalue()
+    finally:
+        metrics.set_default_registry(old)
+        disable_tracing()
+        set_default_recorder(None)
+        set_default_alert_manager(None)
+        shutil.rmtree(work, ignore_errors=True)
+    for line in text.splitlines():
+        print("  cli| " + line)
+    if thread.is_alive() or result.get("rc") != 0 or result1.get("rc") != 0:
+        raise AssertionError(f"the CLI failed: {result}, {result1}\n{text1}")
+    if "outcomes:" in text or "outcomes:" in text1:
+        raise AssertionError("the CLI reports expired or shed requests")
+    stats, stats1 = _cli_stats(text), _cli_stats(text1)
+    if stats["requests"] != CLI_REQUESTS or stats1["requests"] != CLI_REQUESTS:
+        raise AssertionError(f"served {stats['requests']} / "
+                             f"{stats1['requests']} of {CLI_REQUESTS}")
+    code, body = scraped["/readyz"]
+    if code != 200 or json.loads(body)["ready"] is not True:
+        raise AssertionError(f"/readyz answered {code}: {body!r}")
+    per_replica = {r: float(n) for r, n in re.findall(
+        r'^repro_serve_requests_total\{engine="(replica-\d)"\} (\S+)$',
+        scraped["/metrics"][1].decode(), re.M)}
+    if set(per_replica) != {"replica-0", "replica-1"} or \
+            sum(per_replica.values()) != CLI_REQUESTS:
+        raise AssertionError(f"/metrics counts {per_replica}")
+    health = json.loads(scraped["/healthz"][1])
+    series = json.loads(scraped["/timeseries"][1])
+    alerts = json.loads(scraped["/alerts"][1])
+    # every trace submit -> complete, admitted on both replicas; the
+    # predictions by request id (the CLI submits frame i as request i)
+    if dump["n_completed"] != CLI_REQUESTS or any(
+            rec["terminal"] != "complete" for rec in dump["traces"]):
+        raise AssertionError("a traced request did not complete")
+    first = min(rec["request_id"] for rec in dump["traces"])
+    preds = np.full(CLI_REQUESTS, -1)
+    replicas = set()
+    for rec in dump["traces"]:
+        names = [ev["name"] for ev in rec["events"]]
+        if names[0] != "submit" or names[-1] != "complete":
+            raise AssertionError(f"trace runs {names}")
+        replicas |= {ev["replica"] for ev in rec["events"]
+                     if ev["name"] == "admit"}
+        preds[rec["request_id"] - first] = rec["events"][-1]["pred"]
+    if replicas != {"replica-0", "replica-1"}:
+        raise AssertionError(f"admits cover {replicas}")
+    problems = validate_perfetto(doc)
+    if problems:
+        raise AssertionError(f"the Perfetto dump is invalid: {problems[:5]}")
+    params = init_snn(0, cfg)
+    goap = compile_plan(compile_snn(cfg), params,
+                        masks=make_mask_pytree(params, 0.5),
+                        assignment="goap", device=device)
+    iq, _, _ = generate_batch(0, CLI_REQUESTS, snr_db=10.0,
+                              frame_len=cfg.input_width)
+    with torch.inference_mode():
+        want = np.concatenate([goap.bound.batch(sigma_delta_encode_batch(
+            torch.as_tensor(chunk, device=device), cfg.timesteps)
+        ).argmax(-1).cpu().numpy() for chunk in np.split(
+            iq, CLI_REQUESTS // BATCH)])
+    n_diff = int((preds != want).sum())
+    print(f"  serve_cli: {CLI_REQUESTS} requests, 0 failed; /metrics "
+          f"{per_replica}; /healthz {health['status']}; {series['n_sweeps']} "
+          f"sweeps; {len(alerts['firing'])} alerts firing; "
+          f"{len(doc['traceEvents'])} Perfetto events; {n_diff} "
+          f"predictions differ from goap; launches {counts}")
+    if n_diff:
+        raise AssertionError(f"{n_diff} CLI predictions differ from goap")
+    print("serve_cli_phase " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "replicas_2": stats, "replicas_1": stats1,
+        "serve_s_2_replicas": serve_s, "per_replica": per_replica,
+        "healthz": health["status"], "alerts_firing": len(alerts["firing"]),
+        "perfetto_events": len(doc["traceEvents"]), "launches": counts,
+        "card": nvidia_smi()}))
     return counts
 
 

@@ -27,4 +27,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                            "device is available")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda" and dev.index is None:
+        # a card by index: worker threads select it with set_device
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -12,7 +12,9 @@ lif_update.py::lif_update_fused        lif_update.py -> csrc/lif_update.cu
 Each wrapper checks its inputs, launches its kernel for CUDA tensors (the
 library is built at first use by :mod:`.build`) and runs its plain
 PyTorch version (``*_ref``, beside it) for CPU tensors.  Each wrapper
-counts its launches in a plain int attribute, ``wrapper.launches``.
+counts its launches in a plain int attribute, ``wrapper.launches``,
+through :func:`.launches.count_launch`: a launch made while a CUDA graph
+is captured is recorded for the graph and counted at each replay.
 """
 from typing import Dict
 

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.launches import count_launch
+
 __all__ = ["ConvLaunch", "plan_goap_conv_launch", "goap_conv_block_sparse",
            "goap_conv_block_sparse_ref", "goap_conv_block_sparse_inorder",
            "dense_of_blocks"]
@@ -213,7 +215,7 @@ def _launch(blocks, block_cols, x, plan: ConvLaunch) -> torch.Tensor:
              plan.rows_per_thread, plan.blocks, plan.threads, plan.smem_bytes,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "goap_conv_strips_f32")
-    goap_conv_block_sparse.launches += 1
+    count_launch(goap_conv_block_sparse)
     return out
 
 

@@ -19,6 +19,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels.launches import count_launch
+
 __all__ = ["lif_update_fused", "lif_update_fused_ref"]
 
 
@@ -68,7 +70,7 @@ def lif_update_fused(currents: torch.Tensor, v0: torch.Tensor,
              v_fin.data_ptr(), t, n,
              torch.cuda.current_stream(currents.device).cuda_stream)
     check(err, "lif_update_fused_f32")
-    lif_update_fused.launches += 1
+    count_launch(lif_update_fused)
     return spikes, v_fin
 
 

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sparse_format import coo_to_dense
+from repro_torch.kernels.launches import count_launch
 
 __all__ = [
     "FusedConv",
@@ -904,7 +905,7 @@ def _launch(stack: FusedStack, frames: torch.Tensor, encode: bool,
              int(encode), plan.cluster, plan.threads, plan.smem_bytes,
              torch.cuda.current_stream(frames.device).cuda_stream)
     check(err, "stream_fused_forward_f32")
-    stream_fused_forward.launches += 1
+    count_launch(stream_fused_forward)
     return logits, accs
 
 

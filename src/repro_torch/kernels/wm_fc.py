@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.launches import count_launch
+
 __all__ = ["FCLaunch", "plan_wm_fc_launch", "wm_fc_matmul", "wm_fc_matmul_ref",
            "wm_fc_matmul_inorder"]
 
@@ -133,7 +135,7 @@ def _launch(spikes, weights, plan: FCLaunch) -> torch.Tensor:
              dout, plan.rows, plan.out_tile, plan.threads, plan.smem_bytes,
              torch.cuda.current_stream(spikes.device).cuda_stream)
     check(err, "wm_fc_chunked_f32")
-    wm_fc_matmul.launches += 1
+    count_launch(wm_fc_matmul)
     return out
 
 

@@ -10,9 +10,13 @@ loop: Σ-Δ encoding on the host, the plan's batch on the device.
 The serving step is ``iq -> batch_fn(sigma_delta_encode_batch(iq, T))``:
 Σ-Δ encoding in torch ops on the device, then the plan's batch — one
 launch of the whole-network kernel for ``cuda_fused``, the layer-by-layer
-path for the other backends.  It runs eagerly (no ``torch.compile``, no
-CUDA graph).  The ``fixed`` backend encodes with the integer Q0.15 front
-end instead.
+path for the other backends.  The ``fixed`` backend encodes with the
+integer Q0.15 front end instead.  On the card the async engine serves the
+step by CUDA-graph replay, one graph per batch shape, captured at warm-up
+or at a shape's first use (:mod:`repro_torch.serve.capture`, the port of
+the reference's ``jax.jit``); the backend race times each candidate
+through the captured step it would serve with, and the engine serves the
+winner's graphs.  On the CPU the step runs eagerly.
 
 Backend choice, as in the reference: ``backend="auto"`` (the default)
 races the candidates of :func:`~repro_torch.serve.autotune.
@@ -76,6 +80,7 @@ from repro_torch.serve.autotune import (
     default_candidates,
 )
 from repro_torch.serve.batcher import EngineClosed, MicroBatcher, QueueFull
+from repro_torch.serve.capture import CapturedStep, captures
 
 __all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "BoundVersion",
            "ServeStats", "count_batch_activity"]
@@ -307,10 +312,18 @@ class BoundVersion:
     # None when the step returns bare logits
     activity: Optional[ActivityObserver] = dataclasses.field(default=None,
                                                              repr=False)
+    # the step's CUDA graphs, or None where it runs eagerly
+    graphs: Optional[CapturedStep] = dataclasses.field(default=None,
+                                                       repr=False)
 
     def step(self, iq: np.ndarray) -> np.ndarray:
         """(B, IC, L) raw I/Q -> (B, n_classes) logits, on the host."""
         return self.serve_step(iq)[0]
+
+    def release(self) -> None:
+        """Free the step's CUDA graphs (a later step captures anew)."""
+        if self.graphs is not None:
+            self.graphs.release()
 
 
 class AsyncAMCServeEngine:
@@ -415,17 +428,20 @@ class AsyncAMCServeEngine:
 
         self._candidates = candidates
         self._autotune_reps = autotune_reps
+        self.activity_gauges = activity_gauges
         self.autotune: Optional[AutotuneReport] = None
         self.perlayer: Optional[PerLayerAutotuneReport] = None
         self.assignment: Optional[Dict[str, str]] = None
         assignment = backend   # what the plan binds: a name or a layer map
+        raced: Dict[str, Any] = {}
         if backend == "per-layer":
             self.perlayer = autotune_per_layer(
                 self.program, params, self.batcher.max_batch, masks=masks,
                 candidates=candidates, reps=autotune_reps, device=self.device)
             self.assignment = assignment = dict(self.perlayer.assignment)
         elif backend == "auto":
-            self.autotune = self._race(params, masks, lsq_scales, quant_bits)
+            self.autotune, raced = self._race(params, masks, lsq_scales,
+                                              quant_bits)
             backend = assignment = self.autotune.choice
         # a fresh quant closure per bind: FixedQuantFn for the fixed tier (it
         # calibrates without LSQ state), LSQ fake-quant for the float
@@ -437,7 +453,6 @@ class AsyncAMCServeEngine:
                             assignment=assignment, device=self.device)
         self.backend = backend
         self.quant_bits = quant_bits
-        self.activity_gauges = activity_gauges
         self._m_batches = reg.counter(
             "repro_serve_batches_total", "Micro-batches served",
             ("engine", "backend"))
@@ -449,9 +464,14 @@ class AsyncAMCServeEngine:
         # (deploy.swap) binds a new version off-thread, then flips _primary
         # between micro-batches.
         first = self._bound(version_label, backend, plan, assignment,
-                            self.sparse)
+                            self.sparse,
+                            step=self._raced_step(raced, backend, plan))
+        # readiness: set by the primary's warm-up (its graphs captured) or
+        # by the first successful step; what /readyz keys on
+        self._ready = threading.Event()
         if warmup:  # run every bucket shape once before taking traffic
             self._warm(first)
+            self._ready.set()
         self._versions: Dict[str, BoundVersion] = {version_label: first}
         self._primary = version_label
         self._router: Optional[Callable[[], str]] = None
@@ -472,67 +492,115 @@ class AsyncAMCServeEngine:
 
     # -- serving step -------------------------------------------------------
 
-    def _step_of(self, batch_fn, assignment):
-        """``iq -> batch_fn(encode(iq))`` on the device: the serving step
-        of a raced candidate, as the autotuner times it."""
-        encode = _encoder(assignment)
-        osr = self.cfg.timesteps
-        return lambda iq: batch_fn(encode(iq, osr))
-
-    def _race(self, params, masks, lsq_scales, quant_bits) -> AutotuneReport:
+    def _race(self, params, masks, lsq_scales, quant_bits):
         """The whole-network race of the engine's candidates on the largest
-        bucket, each timed through the serving step it would serve with."""
+        bucket, each timed through the served step it would serve with
+        (captured on the card): ``(report, {backend: (plan digest, step)})``
+        so that the winner's step, graphs and all, can serve."""
         candidates = self._candidates
         if candidates is None and lsq_scales is not None:
             # quantized serving: the integer `fixed` backend competes
             candidates = default_candidates(quantized=True, device=self.device)
         ic0 = self.cfg.conv_specs[0][1]
+        shape = (self.batcher.max_batch, ic0, self.cfg.input_width)
+        # the race's all-zero probe, handed to each step from the host as a
+        # served batch is
+        probe = np.zeros(shape, np.float32)
+        raced: Dict[str, Any] = {}
+
+        def make_fn(binding):
+            step = self._make_step(binding.plan, binding.backend)
+            raced[binding.backend] = (binding.plan.digest, step)
+            return lambda _: step[0](probe)
+
         # with LSQ state the race's binds carry the fake-quant weights, so
         # the timings measure the quantized step that would serve
-        return autotune_backend(
-            self.program, params,
-            (self.batcher.max_batch, ic0, self.cfg.input_width), masks=masks,
+        report = autotune_backend(
+            self.program, params, shape, masks=masks,
             quant_fn=serving_quant_fn(lsq_scales, quant_bits),
             candidates=candidates, reps=self._autotune_reps,
-            make_fn=lambda b: self._step_of(b.batch, b.backend),
-            device=self.device)
+            make_fn=make_fn, device=self.device)
+        return report, raced
 
-    def _bound(self, label: str, backend: str, plan, assignment,
-               sparse) -> BoundVersion:
-        """A :class:`BoundVersion` serving ``plan``: Σ-Δ encode on the
-        device (the integer front end for the fixed tier), then the plan's
+    @staticmethod
+    def _raced_step(raced: Dict[str, Any], backend: str, plan):
+        """The race winner's step where it serves ``plan`` (the same
+        content), reused as the reference reuses the winner's compile;
+        every other candidate's graphs are freed."""
+        keep = None
+        for name, (digest, step) in raced.items():
+            if name == backend and digest == plan.digest:
+                keep = step
+            elif step[1] is not None:
+                step[1].release()
+        return keep
+
+    def _make_step(self, plan, assignment):
+        """``(serve_step, graphs)`` for ``plan``: Σ-Δ encode on the device
+        (the integer front end for the fixed tier), then the plan's
         preferred batch; with live gauges, where the plan counts in its
-        step, its counters leave the device in the logits' copy."""
+        step, ``plan.batch_counters`` with its counters packed beside the
+        logits, so both leave the device in one copy.  ``serve_step`` maps
+        (B, IC, L) raw I/Q (numpy) to ``(logits, {conv_name: (B,)
+        accumulations} or None)`` on the host; on the card it replays
+        ``graphs``, one CUDA graph per batch shape."""
         encode = _encoder(assignment)
         osr = self.cfg.timesteps
         device = self.device
+        counters = self.activity_gauges and plan.supports_live_counters
+        layout = {"names": [], "n_classes": 0}
+
+        if counters:
+            def forward(x: torch.Tensor) -> torch.Tensor:
+                logits, accs = plan.batch_counters(encode(x, osr))
+                layout["names"] = list(accs)
+                layout["n_classes"] = logits.shape[1]
+                return torch.cat([logits] + [accs[n][:, None]
+                                             for n in layout["names"]], dim=1)
+        else:
+            batch_fn = plan.preferred_batch()
+
+            def forward(x: torch.Tensor) -> torch.Tensor:
+                return batch_fn(encode(x, osr))
+
+        graphs = CapturedStep(forward, device) if captures(
+            assignment, device) else None
+
+        def run(iq: np.ndarray) -> np.ndarray:
+            if graphs is not None:
+                return graphs(iq)
+            with torch.inference_mode():
+                return forward(torch.as_tensor(iq, dtype=torch.float32,
+                                               device=device)).cpu().numpy()
+
+        def serve_step(iq: np.ndarray):
+            host = run(iq)
+            if not counters:
+                return host, None
+            n = layout["n_classes"]
+            return host[:, :n], {name: host[:, n + i]
+                                 for i, name in enumerate(layout["names"])}
+
+        return serve_step, graphs
+
+    def _bound(self, label: str, backend: str, plan, assignment,
+               sparse, step=None) -> BoundVersion:
+        """A :class:`BoundVersion` serving ``plan`` through ``step`` (a
+        ``(serve_step, graphs)`` pair; by default a new
+        :meth:`_make_step`)."""
+        serve_step, graphs = (step if step is not None
+                              else self._make_step(plan, assignment))
         activity = (ActivityObserver(plan, engine=self.name)
                     if self.activity_gauges and plan.supports_live_counters
                     else None)
-        batch_fn = plan.preferred_batch()
-
-        def serve_step(iq: np.ndarray):
-            with torch.inference_mode():
-                x = torch.as_tensor(iq, dtype=torch.float32, device=device)
-                frames = encode(x, osr)
-                if activity is None:
-                    return batch_fn(frames).cpu().numpy(), None
-                logits, accs = plan.batch_counters(frames)
-                names = list(accs)
-                packed = torch.cat([logits] + [accs[n][:, None]
-                                               for n in names], dim=1)
-                host = packed.cpu().numpy()
-            n_classes = logits.shape[1]
-            return host[:, :n_classes], {n: host[:, n_classes + i]
-                                         for i, n in enumerate(names)}
-
         return BoundVersion(label=label, backend=backend,
                             serve_step=serve_step, plan=plan, sparse=sparse,
                             stats=ServeStats(backend=backend),
-                            activity=activity)
+                            activity=activity, graphs=graphs)
 
     def _warm(self, ver: BoundVersion) -> None:
-        """Run every bucket shape once, ending in a synchronise."""
+        """Run every bucket shape once (on the card: capture its graph and
+        replay it), ending in a synchronise."""
         ic0 = self.cfg.conv_specs[0][1]
         for b in self.batcher.buckets:
             ver.serve_step(np.zeros((b, ic0, self.cfg.input_width), np.float32))
@@ -586,6 +654,7 @@ class AsyncAMCServeEngine:
                 t_step0 = time.perf_counter()
                 logits, accs = ver.serve_step(batch.frames)
                 t_step1 = time.perf_counter()
+                self._ready.set()   # the first successful step: /readyz 200
                 preds = logits.argmax(-1).astype(np.int32)
                 n_real = batch.n_real
                 if accs is not None:   # padded tail rows never counted
@@ -691,6 +760,7 @@ class AsyncAMCServeEngine:
         if backend is None:
             backend = self.backend
         bits = quant_bits if quant_bits is not None else self.quant_bits
+        raced: Dict[str, Any] = {}
         if backend == "per-layer":
             if not self.assignment:
                 # serving a uniform backend while reporting "per-layer"
@@ -703,7 +773,8 @@ class AsyncAMCServeEngine:
             assignment = dict(self.assignment)
         else:
             if backend == "auto":
-                backend = self._race(params, masks, lsq_scales, bits).choice
+                report, raced = self._race(params, masks, lsq_scales, bits)
+                backend = report.choice
             assignment = backend
         plan = compile_plan(self.program, params, masks=masks,
                             quant_fn=serving_quant_fn(lsq_scales, bits,
@@ -711,7 +782,8 @@ class AsyncAMCServeEngine:
                             assignment=assignment, device=self.device)
         sparse = (sparsify_params(params, masks) if self.count_activity
                   else None)
-        ver = self._bound(label, backend, plan, assignment, sparse)
+        ver = self._bound(label, backend, plan, assignment, sparse,
+                          step=self._raced_step(raced, backend, plan))
         if warmup:  # every bucket once, so the flip never stalls
             self._warm(ver)
         with self._lock:
@@ -745,7 +817,9 @@ class AsyncAMCServeEngine:
                 raise ValueError(
                     f"cannot remove the primary version {label!r}; "
                     "swap_to another version first")
-            self._versions.pop(label, None)
+            ver = self._versions.pop(label, None)
+        if ver is not None:
+            ver.release()
 
     def set_router(self, router: Optional[Callable[[], str]]) -> None:
         """Install (or clear, with None) the per-batch version router."""
@@ -831,8 +905,18 @@ class AsyncAMCServeEngine:
             raise
         return out
 
+    def is_ready(self) -> bool:
+        """True once the primary's warm-up or the first step succeeded,
+        until :meth:`close`."""
+        return self._ready.is_set() and not self._stop.is_set()
+
+    @property
+    def closed(self) -> bool:
+        return self._stop.is_set()
+
     def close(self) -> None:
-        """Stop the workers; queued requests fail instead of hanging."""
+        """Stop the workers; queued requests fail instead of hanging.  The
+        versions' CUDA graphs are freed (a later ``step`` captures anew)."""
         self._stop.set()
         self.batcher.close()
         for t in self._threads:
@@ -843,6 +927,8 @@ class AsyncAMCServeEngine:
             tadd(r.trace, "cancelled", at="close")
             tfinish(r.trace)
             _fail_future(r.future, err)
+        for ver in self.versions().values():
+            ver.release()
 
     def __enter__(self) -> "AsyncAMCServeEngine":
         return self

@@ -619,3 +619,101 @@ def test_a_failing_kernel_fails_bind_version_on_the_card(cuda):
             graph._REGISTRY.clear()
             graph._REGISTRY.update(snapshot)
         assert set(engine.versions()) == {"default"}
+
+
+# ---------------------------------------------------------------------------
+# the served step captured in CUDA graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,gauges", [
+    ("cuda_fused", True), ("cuda_fused", False), ("cuda", False),
+    ("goap", False), ("dense", False), ("stream", True), ("stream", False),
+    ("fixed", False)])
+def test_captured_step_equals_the_eager_step_on_every_bucket(cuda, backend,
+                                                             gauges):
+    """Every backend's served step is captured at warm-up (none is on the
+    eager list) and its replay equals the same step run op by op, bit for
+    bit, on every bucket and on a shape captured at first use."""
+    from repro_torch.serve.capture import EAGER_BACKENDS
+    from repro_torch.train.lsq import init_lsq_scales
+
+    _, params, masks = _plan(SMALL, 30, cuda, backend="goap")
+    scales = init_lsq_scales(params, 16) if backend == "fixed" else None
+    iq = _iq(SMALL, 8, 31)
+    with AsyncAMCServeEngine(params, SMALL, masks, backend=backend,
+                             max_batch=8, activity_gauges=gauges,
+                             lsq_scales=scales) as engine:
+        graphs = engine.get_version("default").graphs
+        assert backend not in EAGER_BACKENDS and graphs is not None
+        assert {s[0] for s in graphs.shapes()} == set(engine.batcher.buckets)
+        for b in list(engine.batcher.buckets) + [5]:
+            got, want = graphs(iq[:b]), graphs.eager(iq[:b])
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+        logits, accs = engine.serve_step(iq)
+        assert (accs is not None) == (gauges and backend != "fixed")
+        np.testing.assert_array_equal(logits.argmax(-1), engine.classify(iq))
+
+
+@pytest.mark.cuda
+def test_replays_count_the_launches_their_capture_recorded(cuda):
+    _, params, masks = _plan(SMALL, 32, cuda, backend="goap")
+    iq = _iq(SMALL, 8, 33)
+    for backend, kernels in (("cuda_fused", {"stream_fused_forward"}),
+                             ("cuda", {"goap_conv_block_sparse",
+                                       "wm_fc_matmul", "lif_update_fused"})):
+        with AsyncAMCServeEngine(params, SMALL, masks, backend=backend,
+                                 max_batch=8) as engine:
+            graphs = engine.get_version("default").graphs
+            per_replay = graphs.launches((8, 2, SMALL.input_width))
+            assert set(per_replay) == kernels
+            reset_launch_counts()
+            for _ in range(5):
+                graphs(iq)
+            torch.cuda.synchronize()
+            assert launch_counts() == {k: 5 * per_replay.get(k, 0)
+                                       for k in launch_counts()}
+
+
+@pytest.mark.cuda
+def test_capture_while_other_engines_serve(cuda):
+    """A hot-swap's bind, a second engine's warm-up and a fleet's scale-up
+    capture while other workers replay on the same card; four workers
+    share one version's graphs.  Nothing fails, every prediction is
+    goap's."""
+    from repro_torch.data.pipeline import sigma_delta_encode_np
+    from repro_torch.fleet import FleetRouter, engine_factory
+
+    p1, p2 = init_snn(40, SMALL), init_snn(41, SMALL)
+    m1, m2 = make_mask_pytree(p1, 0.5), make_mask_pytree(p2, 0.5)
+    iq = _iq(SMALL, 256, 42)
+
+    def goap_preds(params, masks):
+        plan = compile_plan(compile_snn(SMALL), params, masks=masks,
+                            assignment="goap", device=cuda)
+        return plan.bound.batch(torch.as_tensor(sigma_delta_encode_np(
+            iq, SMALL.timesteps), device=cuda)).argmax(-1).cpu().numpy()
+
+    want1 = goap_preds(p1, m1)
+    with AsyncAMCServeEngine(p1, SMALL, m1, backend="cuda_fused", max_batch=8,
+                             workers=4) as busy:
+        futures = [busy.submit(f) for f in iq]
+        busy.bind_version("v2", p2, m2)            # captures under load
+        with AsyncAMCServeEngine(p2, SMALL, m2, backend="cuda",
+                                 max_batch=8) as other:
+            fleet = FleetRouter(engine_factory(p1, SMALL, masks=m1,
+                                               backend="cuda_fused",
+                                               max_batch=8, device=cuda),
+                                replicas=1, max_replicas=2)
+            try:
+                assert fleet.scale_up() == "replica-1"
+                np.testing.assert_array_equal(fleet.classify(iq), want1)
+            finally:
+                fleet.close()
+            np.testing.assert_array_equal(other.classify(iq),
+                                          goap_preds(p2, m2))
+        got = np.array([f.result(timeout=120) for f in futures])
+        np.testing.assert_array_equal(got, want1)
+        busy.swap_to("v2")
+        np.testing.assert_array_equal(busy.classify(iq), goap_preds(p2, m2))

@@ -22,26 +22,12 @@ REF_EXPORTS = sorted([SRC / "repro" / "api.py"]
                         if "__all__" in p.read_text()])
 
 # exporting reference module -> the names it exports whose defining
-# modules are not ported yet (ROADMAP Queue 1: fleet/, item 5; the obs
-# analysis plane, item 6; distributed/, item 7)
-_OBS_PLANE = [
-    "MetricsServer", "alert_health_check", "engine_health_check",
-    "engine_ready_probe", "Series", "TimeSeriesRecorder",
-    "get_default_recorder", "set_default_recorder", "SLO", "SLOStatus",
-    "BurnWindow", "BurnRateEngine", "DEFAULT_BURN_WINDOWS", "scaled_windows",
-    "parse_slo_spec", "default_serve_slos", "EwmaDetector", "Alert",
-    "AlertManager", "WatchSpec", "default_drift_watches", "SeriesWatcher",
-    "BurnRateWatcher", "autoscaler_sink", "canary_shadow_sink",
-    "log_file_sink", "set_default_alert_manager", "get_default_alert_manager",
-    "to_perfetto", "write_perfetto", "validate_perfetto"]
+# modules are not ported yet (ROADMAP Queue 1: distributed/, item 7)
 WAITING = {
     "repro.distributed": [
         "activation_constraints", "constrain_acts", "constrain_logits",
         "act_pspec", "decode_state_specs", "dp_axes", "logits_pspec",
         "named_tree", "partition_params", "train_batch_spec"],
-    "repro.fleet": ["FleetRouter", "Replica", "ShedError", "engine_factory",
-                    "merge_stats", "Autoscaler", "AutoscaleTick"],
-    "repro.obs": _OBS_PLANE,
 }
 
 

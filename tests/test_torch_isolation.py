@@ -44,8 +44,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 
 # the modules of the measurement plane, the integer tier, the training
 # path, the paper's table scripts, the backend race, the plan cache's disk
-# tier, the channel scenarios, the robustness evaluation and the model
-# lifecycle, each imported alone in a fresh interpreter
+# tier, the channel scenarios, the robustness evaluation, the model
+# lifecycle, the fleet, the obs analysis plane, the served step's capture
+# and the serving CLI, each imported alone in a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
           "repro_torch.train.lsq", "repro_torch.data.radioml",
@@ -63,7 +64,13 @@ _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.eval.robustness", "repro_torch.launch.eval",
           "repro_torch.deploy", "repro_torch.deploy.registry",
           "repro_torch.deploy.router", "repro_torch.deploy.swap",
-          "repro_torch.deploy.monitor"]
+          "repro_torch.deploy.monitor", "repro_torch.fleet",
+          "repro_torch.fleet.router", "repro_torch.fleet.autoscaler",
+          "repro_torch.obs", "repro_torch.obs.timeseries",
+          "repro_torch.obs.slo", "repro_torch.obs.anomaly",
+          "repro_torch.obs.export", "repro_torch.obs.http",
+          "repro_torch.serve.capture", "repro_torch.kernels.launches",
+          "repro_torch.launch.serve"]
 
 
 @pytest.mark.parametrize("module", _ALONE)
