@@ -61,9 +61,17 @@ file; exits non-zero without them.  In order, it
 8. trains the paper model on the card (``train``: ``SNNTrainer`` at full
    width, batch 64, Table V's 25-20-15-20-25 per-layer densities, 16-bit
    LSQ, ``prune_every=10``, 40 steps, checkpoints in a temporary
-   directory) and gates four things: one training step on the card
-   against the same step on the CPU from the same state and batch (loss
-   within 1e-4, clipped gradients within 1e-3 in relative norm); a
+   directory; every step replayed from the trainer's CUDA graph) and
+   gates five things: one training step on the card against the same
+   step on the CPU from the same state and batch (loss within 1e-4,
+   clipped gradients within 1e-3 in relative norm); eight captured steps
+   against eight eager ones from one state (``prune_every=2`` over an
+   8-step schedule, so reprunes fall inside: every leaf of params,
+   optimizer state, masks and LSQ scales and every loss equal, one
+   capture for the one variant, a params tree read before the steps
+   unchanged after them, ``evaluate()`` and its logits equal captured,
+   eager and through the ``dense`` plan), each trainer's step then timed
+   (each step waited for, and back to back) and profiled in turns; a
    trainer resumed from the step-20 checkpoint equal to the one that ran
    on, bit for bit, after 20 more steps; the trained, pruned, quantized
    model served to 256 requests through ``AsyncAMCServeEngine(backend=
@@ -72,7 +80,11 @@ file; exits non-zero without them.  In order, it
    loss finite.  Prints ``train_phase`` with the median step ms (host to
    host), its host part (RadioML generation and Σ-Δ encoding), the card's
    busy ms and operations a step (``torch.profiler``), the first and last
-   10 steps' mean loss and both accuracies;
+   10 steps' mean loss and both accuracies; then ``compression_phase``:
+   ``compressed_psum`` of the trained model's clipped gradients over a
+   world-size-1 NCCL group (a ``FileStore`` rendezvous in a temporary
+   directory) equal to the dequantized ``ef_compress`` codes, with the
+   compression ratio;
 9. races the backends as a user's default engine does
    (``autotune_phase``: ``AsyncAMCServeEngine(params, cfg, masks)`` with
    ``backend="auto"`` races dense, goap, cuda and cuda_fused on the
@@ -128,7 +140,20 @@ file; exits non-zero without them.  In order, it
     validates, no request failed, and the CLI's predictions equal the
     plain ``goap`` backend's; then one replica serves the same requests
     for the 1-replica frames/s and p50/p99;
-18. prints the whole run's seconds, one JSON line of per-kernel results,
+18. serves the 256 requests data-parallel (``mesh_phase``:
+    ``AsyncAMCServeEngine(mesh=serve_mesh())`` over every local card,
+    ``backend="auto"``, batch 64): predictions equal to the unsharded
+    engine's and ``goap``'s, buckets aligned to the mesh, every batch by
+    graph replay on every card, only the winner's kernels (the fused one
+    when ``cuda_fused`` wins); prints the sharded step beside the
+    unsharded one, host to host;
+19. runs the 4-stage SNN pipeline of ``repro_torch.examples.snn_pipeline``
+    on the card (``pipeline_phase``): logits within 1e-5 of the
+    unpipelined ``dense`` forward and of the same pipeline on the CPU;
+    prints its seconds;
+20. runs the five SNN examples in process on the card with tiny budgets
+    (``examples_phase``; each must return 0);
+21. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -162,6 +187,11 @@ TRAIN_STEPS = 40
 TRAIN_RESUME_AT = 20
 TRAIN_LOSS_ATOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
+# the captured-against-eager gate: steps from one state (a schedule of that
+# many steps, masks recomputed every 2, so reprunes fall inside), then
+# steps timed one at a time and back to back
+CAPTURE_GATE_STEPS = 8
+STEP_TIMING_STEPS = 5
 
 
 def nvidia_smi() -> str:
@@ -488,7 +518,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-17 on ``device``; returns the kernels JSON object."""
+    """Phases 3-20 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -588,7 +618,10 @@ def run(device, timers: Timers, seed: int = SEED):
     print("phase: fixed")
     run_fixed_phase(params, masks, cfg, iq, device, timers)
     print("phase: train")
-    paths = {"trained": run_train_phase(cfg, device, timers, seed)}
+    paths = {}
+    paths["trained"], trained = run_train_phase(cfg, device, timers, seed)
+    print("phase: compression")
+    run_compression_phase(trained, device)
     print("phase: autotune")
     auto_preds, auto_stats, auto_paths = run_autotune_phase(
         params, masks, cfg, iq, want, device, timers)
@@ -610,6 +643,13 @@ def run(device, timers: Timers, seed: int = SEED):
                                          timers)
     print("phase: serve_cli")
     paths["serve_cli"] = run_serve_cli_phase(cfg, device)
+    print("phase: mesh")
+    paths["mesh"] = run_mesh_phase(params, masks, cfg, iq, preds, want,
+                                   device, timers)
+    print("phase: pipeline")
+    run_pipeline_phase(device)
+    print("phase: examples")
+    run_examples_phase(device)
     for row in result["kernels"]:
         for path, counts in paths.items():
             row["launches_by_path"][path] = counts[row["name"]]
@@ -798,11 +838,11 @@ def train_config(cfg, **overrides):
     from repro_torch.configs.saocds_amc import DENSITY_CONFIGS
     from repro_torch.train import TrainerConfig
 
-    return TrainerConfig(
-        total_steps=TRAIN_STEPS, batch_size=BATCH, snr_db=10.0,
-        osr=cfg.timesteps,
-        per_layer_density=DENSITY_CONFIGS["saocds-25-20-15-20-25"],
-        prune_every=10, use_lsq=True, quant_bits=16, **overrides)
+    return TrainerConfig(**{
+        "total_steps": TRAIN_STEPS, "batch_size": BATCH, "snr_db": 10.0,
+        "osr": cfg.timesteps,
+        "per_layer_density": DENSITY_CONFIGS["saocds-25-20-15-20-25"],
+        "prune_every": 10, "use_lsq": True, "quant_bits": 16, **overrides})
 
 
 def check_step_against_cpu(cfg, device) -> dict:
@@ -873,10 +913,136 @@ def profile_steps(step, steps: int = 3) -> dict:
             "device_ops_per_step": len(spans) / steps if spans else None}
 
 
-def run_train_phase(cfg, device, timers, seed: int = SEED) -> dict:
-    """Phase 8: train the model on the card, resume bit for bit, serve the
-    trained model through the whole-network kernel.  Returns the served
-    path's launch counts."""
+def step_ms(trainer, steps: int) -> dict:
+    """A trainer's step host to host: each step waited for (median ms),
+    and ``steps`` steps back to back with one wait at the end (ms a step),
+    as ``launch.train`` runs them."""
+    import torch
+
+    waited = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        trainer.run(steps=1, log_every=1)
+        torch.cuda.synchronize()
+        waited.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    trainer.run(steps=steps, log_every=steps)
+    torch.cuda.synchronize()
+    return {"step_ms_waited": statistics.median(waited),
+            "step_ms_back_to_back": (time.perf_counter() - t0) * 1e3 / steps}
+
+
+def check_capture_against_eager(cfg, device) -> dict:
+    """Gate 5: CAPTURE_GATE_STEPS steps captured and as many op by op,
+    from one state (Table V densities, 16-bit LSQ, masks recomputed every
+    2 steps over a schedule of that length, so the reprunes fall inside):
+    every leaf of params, optimizer state, masks and LSQ scales
+    ``torch.equal``, the losses equal; one capture for the one variant
+    across the reprunes; a params tree read before the steps unchanged
+    after them; ``evaluate()`` equal, its logits bit for bit, captured,
+    eager and through the ``dense`` plan.  Then each trainer's step timed
+    and profiled in turns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import compile_snn
+    from repro_torch.train import SNNTrainer
+    from repro_torch.tree import tree_leaves
+
+    tcfg = train_config(cfg, total_steps=CAPTURE_GATE_STEPS, prune_every=2)
+    cap = SNNTrainer(cfg, tcfg, device=device)
+    eager = SNNTrainer(cfg, tcfg, device=device, capture=False)
+    if not cap.capture or eager.capture:
+        raise AssertionError("the trainer does not capture by default on "
+                             "the card")
+    before = cap.params
+    before_copy = [x.clone() for x in tree_leaves(before)]
+    seconds = {}
+    t0 = time.perf_counter()
+    h_cap = cap.run(steps=CAPTURE_GATE_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    seconds["captured_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    h_eager = eager.run(steps=CAPTURE_GATE_STEPS, log_every=1)
+    torch.cuda.synchronize()
+    seconds["eager_steps"] = time.perf_counter() - t0
+    # the first captured step: warm-ups, capture and one replay
+    seconds["first_captured_step"] = cap.step_times[0]
+    t0 = time.perf_counter()
+    reprunes = [s for s in range(CAPTURE_GATE_STEPS)
+                if s % 2 == 0 and s < 0.8 * CAPTURE_GATE_STEPS]
+    leaves_c = tree_leaves(cap._state_tree())
+    leaves_e = tree_leaves(eager._state_tree())
+    n_diff = sum(not torch.equal(x, y) for x, y in zip(leaves_c, leaves_e))
+    unchanged = all(torch.equal(x, y) for x, y in
+                    zip(tree_leaves(before), before_copy))
+    moved = not all(torch.equal(x, y) for x, y in
+                    zip(tree_leaves(cap.params), before_copy))
+    frames, _ = cap._host_batch(10_000, 10.0)
+    logits_c = cap._eval_logits(frames, True)
+    logits_e = eager._eval_logits(frames, True)
+    logits_plan = compile_snn(cfg).apply_batch(
+        cap.params, frames, "dense", masks=cap.masks, device=device
+    ).cpu().numpy()
+    acc_c, acc_e = cap.evaluate(snr_db=10.0), eager.evaluate(snr_db=10.0)
+    seconds["evaluate"] = time.perf_counter() - t0
+    line = {"steps": CAPTURE_GATE_STEPS, "reprune_steps": reprunes,
+            "leaves": len(leaves_c), "leaves_differ": n_diff,
+            "losses_captured": h_cap["loss"], "losses_eager": h_eager["loss"],
+            "train_captures": cap._steps.captures,
+            "train_variants": [list(map(str, k)) for k in cap._steps.keys()],
+            "read_tree_unchanged": unchanged, "params_moved": moved,
+            "evaluate_captured": acc_c, "evaluate_eager": acc_e,
+            "eval_logits_equal": bool(np.array_equal(logits_c, logits_e)),
+            "eval_equal_to_plan": bool(np.array_equal(logits_c, logits_plan)),
+            "eval_captures": cap._evals.captures}
+    print(f"  captured vs eager: {json.dumps(line)}")
+    if (len(leaves_c) != len(leaves_e) or n_diff
+            or h_cap["loss"] != h_eager["loss"]
+            or len(h_cap["loss"]) != CAPTURE_GATE_STEPS):
+        raise AssertionError("the captured training steps differ from the "
+                             "eager ones")
+    if cap._steps.captures != 1 or len(cap._steps.keys()) != 1:
+        raise AssertionError("the train step was captured more than once "
+                             "for its one variant")
+    if not (unchanged and moved):
+        raise AssertionError("a params tree read before a step changed after "
+                             "it, or the steps did not move the params")
+    if not (acc_c == acc_e and line["eval_logits_equal"]
+            and line["eval_equal_to_plan"]):
+        raise AssertionError("the captured evaluate() differs from the eager "
+                             "one or from the dense plan")
+    # where a step's time goes, captured and eager in turns
+    t0 = time.perf_counter()
+    timed = {}
+    for mode, tr in (("captured", cap), ("eager", eager),
+                     ("eager", eager), ("captured", cap)):
+        t = step_ms(tr, STEP_TIMING_STEPS)
+        for k, v in t.items():
+            timed.setdefault(mode, {}).setdefault(k, []).append(v)
+    seconds["timing"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for mode, tr in (("captured", cap), ("eager", eager)):
+        prof = profile_steps(lambda: tr.run(steps=1, log_every=1))
+        busy = prof["device_busy_ms"]
+        waited = statistics.median(timed[mode]["step_ms_waited"])
+        prof["device_idle_share"] = None if busy is None else 1.0 - busy / waited
+        timed[mode]["profile"] = prof
+    seconds["profile"] = time.perf_counter() - t0
+    if cap._steps.captures != 1:
+        raise AssertionError("the timed steps captured the step again")
+    line["timed"] = timed
+    line["seconds"] = seconds
+    line["card"] = nvidia_smi()
+    print(f"  step timing: {json.dumps(timed)} ({line['card']})")
+    return line
+
+
+def run_train_phase(cfg, device, timers, seed: int = SEED):
+    """Phase 8: train the model on the card (captured steps), hold
+    captured steps to eager ones, resume bit for bit, serve the trained
+    model through the whole-network kernel.  Returns the served path's
+    launch counts and the trained trainer."""
     import math
     import shutil
     import tempfile
@@ -893,7 +1059,8 @@ def run_train_phase(cfg, device, timers, seed: int = SEED) -> dict:
     from repro_torch.tree import tree_leaves
 
     line = {"steps": TRAIN_STEPS, "batch": BATCH,
-            "one_step": check_step_against_cpu(cfg, device)}
+            "one_step": check_step_against_cpu(cfg, device),
+            "captured_vs_eager": check_capture_against_eager(cfg, device)}
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         # gate 2: A trains to the checkpoint and on; B resumes from a copy
@@ -992,7 +1159,7 @@ def run_train_phase(cfg, device, timers, seed: int = SEED) -> dict:
                  "served_launches": counts})
     line["card"] = nvidia_smi() if device.type == "cuda" else "cpu"
     print(f"train_phase {json.dumps(line)}")
-    return counts
+    return counts, a
 
 
 def kernels_of(plan) -> set:
@@ -1855,6 +2022,183 @@ def run_serve_cli_phase(cfg, device) -> dict:
         "perfetto_events": len(doc["traceEvents"]), "launches": counts,
         "card": nvidia_smi()}))
     return counts
+
+
+def run_compression_phase(trainer, device) -> dict:
+    """Int8 gradient compression on the card: ``compressed_psum`` of the
+    trained model's clipped gradients (one step's, on a fresh batch) over a
+    world-size-1 NCCL group (rendezvous through a ``FileStore`` in a
+    temporary directory: no network) must equal ``dequantize_int8`` of
+    ``ef_compress``'s codes and scales, and its error feedback
+    ``ef_compress``'s, bit for bit."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     compression_ratio,
+                                                     dequantize_int8,
+                                                     ef_compress)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    frames, labels, _ = trainer._batch(SEED + 2, 10.0)
+    _, _, grads, _, _ = trainer._gradients(trainer.params, trainer.lsq_scales,
+                                           trainer.masks, frames, labels)
+    ef = tree_map(torch.zeros_like, grads)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            compressed_psum(grads, ef)          # NCCL's communicator set-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, new_ef = compressed_psum(grads, ef)
+            torch.cuda.synchronize()
+            psum_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            dist.destroy_process_group()
+    q, scales, want_ef = ef_compress(grads, ef)
+    want = dequantize_int8(q, scales)
+    n_diff = sum(not torch.equal(a, b) for a, b in
+                 zip(tree_leaves(mean), tree_leaves(want)))
+    n_diff_ef = sum(not torch.equal(a, b) for a, b in
+                    zip(tree_leaves(new_ef), tree_leaves(want_ef)))
+    line = {"leaves": len(tree_leaves(grads)), "mean_leaves_differ": n_diff,
+            "ef_leaves_differ": n_diff_ef,
+            "compression_ratio": compression_ratio(grads),
+            "psum_ms": psum_ms, "backend": "nccl", "world_size": 1,
+            "card": nvidia_smi()}
+    print(f"compression_phase {json.dumps(line)}")
+    if n_diff or n_diff_ef or not all(
+            torch.isfinite(x).all() for x in tree_leaves(mean)):
+        raise AssertionError("compressed_psum differs from the dequantized "
+                             "ef_compress codes")
+    return line
+
+
+def run_mesh_phase(params, masks, cfg, iq, unsharded, want, device,
+                   timers) -> dict:
+    """Data-parallel serving over ``serve_mesh()`` (every local card): the
+    default ``auto`` engine on the mesh serves the REQUESTS frames at batch
+    BATCH with the unsharded engine's predictions (and ``goap``'s), every
+    batch by graph replay on every card, launching only the winner's
+    kernels, one replay's record on each card a batch.  Prints the sharded
+    step beside the unsharded one, host to host.  Returns the served
+    window's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine
+    from repro_torch.distributed.sharding import serve_mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    mesh = serve_mesh()
+    ic0, width = cfg.conv_specs[0][1], cfg.input_width
+    t0 = time.perf_counter()
+    with AsyncAMCServeEngine(params, cfg, masks, mesh=mesh, max_batch=BATCH,
+                             name="mesh") as engine:
+        build_s = time.perf_counter() - t0
+        check_race_errors(engine.autotune.errors, "mesh race")
+        graphs = engine.get_version(engine.active_version).graphs
+        buckets = engine.batcher.buckets
+        if graphs is None or any(b % mesh.size for b in buckets):
+            raise AssertionError(f"mesh engine: no graphs, or buckets "
+                                 f"{buckets} not aligned to {mesh.size}")
+        replays0 = graphs.replays
+        reset_launch_counts()
+        preds = serve_all(engine, iq)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        replays = graphs.replays - replays0
+        batches = engine.stats.batches
+        per_replay = graphs.launches((BATCH, ic0, width))
+        iq_b = iq[:BATCH]
+        mesh_ms = [timers.host(lambda: engine.step(iq_b))]
+        with AsyncAMCServeEngine(params, cfg, masks, backend=engine.backend,
+                                 max_batch=BATCH, device=device,
+                                 name="unsharded") as single:
+            single_ms = timers.host(lambda: single.step(iq_b))
+        mesh_ms.append(timers.host(lambda: engine.step(iq_b)))
+        backend = engine.backend
+    expect_launches(counts, kernels_of(engine.plan), "mesh served path")
+    if backend == "cuda_fused":
+        expect_launches(counts, {"stream_fused_forward"}, "mesh served path")
+    if replays != batches or any(
+            counts[k] != replays * n for k, n in per_replay.items()):
+        raise AssertionError(f"mesh: {batches} batches, {replays} replays, "
+                             f"launches {counts}, per replay {per_replay}: "
+                             "not every batch was served by replay")
+    n_diff = int((preds != unsharded).sum())
+    n_goap = int((preds != want).sum())
+    line = {"devices": [str(d) for d in mesh.devices], "backend": backend,
+            "race_ms": engine.autotune.timings_ms, "buckets": list(buckets),
+            "requests": len(preds), "batches": batches, "replays": replays,
+            "launches": counts, "launches_per_replay": per_replay,
+            "differ_from_unsharded": n_diff, "differ_from_goap": n_goap,
+            "build_s": build_s, "step_ms_mesh": mesh_ms,
+            "step_ms_unsharded": single_ms, "card": nvidia_smi()}
+    print(f"mesh_phase {json.dumps(line)}")
+    if n_diff or n_goap:
+        raise AssertionError(f"mesh: {n_diff} predictions differ from the "
+                             f"unsharded engine's, {n_goap} from goap's")
+    return counts
+
+
+def run_pipeline_phase(device) -> dict:
+    """The example's 4-stage SNN pipeline (conv1 | conv2 | conv3 | FC head,
+    8 microbatches, ``dense``) on the card: its logits within ATOL of the
+    unpipelined ``dense`` forward on the same frames, and of the same
+    pipeline on the CPU.  Prints the pipeline's seconds (the second run's
+    too, with the card warm)."""
+    import argparse
+
+    import numpy as np
+
+    from repro_torch.examples import snn_pipeline
+
+    card = snn_pipeline.run(argparse.Namespace(device=str(device)))
+    again = snn_pipeline.run(argparse.Namespace(device=str(device)))
+    cpu = snn_pipeline.run(argparse.Namespace(device="cpu"))
+    vs_cpu = float(np.abs(card["pipe_logits"] - cpu["pipe_logits"]).max())
+    line = {"stages": card["devices"], "microbatches": 8,
+            "max_err_vs_dense": card["max_err"], "max_err_vs_cpu": vs_cpu,
+            "repeat_equal": bool(np.array_equal(card["pipe_logits"],
+                                                again["pipe_logits"])),
+            "seconds": [card["seconds"], again["seconds"]],
+            "cpu_seconds": cpu["seconds"], "card": nvidia_smi()}
+    print(f"pipeline_phase {json.dumps(line)}")
+    if card["max_err"] > ATOL or vs_cpu > ATOL or not np.isfinite(
+            card["pipe_logits"]).all():
+        raise AssertionError(f"the 4-stage pipeline differs: {line}")
+    return line
+
+
+EXAMPLES = (("quickstart", []),
+            ("amc_train", ["--steps", "4", "--batch", "16"]),
+            ("amc_serve", ["--train-steps", "4", "--requests", "16"]),
+            ("amc_deploy", ["--train-steps", "10", "--requests", "32"]),
+            ("snn_pipeline", []))
+
+
+def run_examples_phase(device) -> dict:
+    """Each of the five SNN examples in process on the card with tiny
+    budgets; each must return 0."""
+    import importlib
+
+    seconds = {}
+    for name, argv in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        rc = module.main(argv + ["--device", str(device)])
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"example {name} exited {rc}")
+    line = {"seconds": seconds, "card": nvidia_smi()}
+    print(f"examples_phase {json.dumps(line)}")
+    return line
 
 
 def main() -> int:

@@ -191,6 +191,11 @@ def run_cell(cell: LayerCell, xs):
     return _stack_steps(ys), state, aux
 
 
+def _at_batch(xs, b: int):
+    """Sample ``b`` of a (T, B, ...) sequence (or a tuple of them)."""
+    return tuple(x[:, b] for x in xs) if isinstance(xs, tuple) else xs[:, b]
+
+
 def _spikes_of(x_t):
     """Input spikes of a per-timestep value (FC cells emit (spikes, currents))."""
     return x_t[0] if isinstance(x_t, tuple) else x_t
@@ -565,9 +570,13 @@ class BoundProgram:
         return (logits if logits is not None else x), counters
 
     def run(self, frames: torch.Tensor):
-        """(T, IC0, W) frames -> (logits (n_classes,), counters)."""
-        logits, counters = self.run_batch(frames[:, None])
-        return logits[0], counters
+        """(T, IC0, W) frames -> (logits (n_classes,), counters); a slice
+        of the graph without the readout returns its last layer's (T, ...)
+        outputs instead of logits."""
+        out, counters = self.run_batch(frames[:, None])
+        if any(spec.kind == KIND_READOUT for spec, _ in self.stages):
+            return out[0], counters
+        return _at_batch(out, 0), counters
 
     def batch(self, frames_b: torch.Tensor) -> torch.Tensor:
         """(B, T, IC0, W) -> (B, n_classes)."""
@@ -609,8 +618,31 @@ class SNNProgram:
                             assignment=backend, device=device)
         return plan.bound.batch(plan.to_device(frames_b))
 
+    def run_layers(self, layers, params, x: torch.Tensor,
+                   backend: str = "dense", *, masks=None, quant_fn=None,
+                   device=None):
+        """Execute a contiguous slice of the graph on one sample ``x``
+        (T, IC, W) (pipeline stages): the slice's (T, ...) outputs, or the
+        logits when it ends in the readout."""
+        return self._bind(params, backend, masks=masks, quant_fn=quant_fn,
+                          device=device, layers=layers).run(x)[0]
+
+    # -- graph slicing (pipeline-stage construction) -------------------------
+
+    def conv_block(self, i: int) -> Tuple[LayerSpec, ...]:
+        """The (Conv1dLIF, MaxPool) pair for conv stage ``i``."""
+        convs = [j for j, s in enumerate(self.layers) if s.kind == KIND_CONV]
+        j = convs[i]
+        return self.layers[j:j + 2]
+
+    def head_layers(self) -> Tuple[LayerSpec, ...]:
+        """Everything from the first FC layer through the readout."""
+        first_fc = next(j for j, s in enumerate(self.layers)
+                        if s.kind == KIND_FC)
+        return self.layers[first_fc:]
+
     def _bind(self, params, backend: str = "dense", *, masks=None,
-              quant_fn=None, device=None) -> BoundProgram:
+              quant_fn=None, device=None, layers=None) -> BoundProgram:
         """Resolve every layer against ``backend`` and close over params on
         ``device`` (the card unless ``device="cpu"``).
 
@@ -619,11 +651,12 @@ class SNNProgram:
         their output differentiates to every weight, LIF parameter and LSQ
         step size (the trainer's path); ``quant_fn`` is called once per
         weighted layer, in graph order.  Concrete-weight serving goes
-        through :func:`repro_torch.plan.compile_plan` instead.
+        through :func:`repro_torch.plan.compile_plan` instead.  ``layers``
+        binds a slice of the graph (default: all of it).
         """
         dev = resolve_device(device)
         stages = []
-        for spec in self.layers:
+        for spec in (self.layers if layers is None else layers):
             factory = get_backend(backend, spec.kind)
             lp, m = self.layer_params(spec, params, masks)
             stages.append((spec, factory(spec, lp, cfg=self.cfg, mask=m,

@@ -46,7 +46,15 @@ traffic unless a router (canary / A/B split) is installed;
 path and :meth:`~AsyncAMCServeEngine.swap_to` flips the primary between
 micro-batches, each batch pinned to the version that started it.
 
-Not ported yet, and refused with ``NotImplementedError``: mesh serving.
+Mesh serving (the reference's ``shard_map`` step): with ``mesh=`` (a
+:func:`~repro_torch.distributed.sharding.serve_mesh`), or by default when
+more than one card is present and no ``device`` is given, every bucket is
+aligned to the mesh's ``data`` size and each batch is split evenly over
+its devices.  Each device has its own plan and, on the card, its own
+captured graphs, for every bound version; a served step copies every
+shard in, replays every device's graph and copies every output out before
+it waits on each device once.  The race times that sharded step.  Live
+activity gauges are off under a mesh, as in the reference.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from repro_torch.core.saocds import max_pool_spikes, pad_same, saocds_conv_layer
 from repro_torch.core.sparse_format import weight_mask_from_dense
 from repro_torch.data.pipeline import sigma_delta_encode_batch, sigma_delta_encode_np
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import ServeMesh, serve_mesh, shard_serve_fn
 from repro_torch.fixed import assignment_uses_fixed, fixed_encode_batch, serving_quant_fn
 from repro_torch.fixed.golden import golden_encode_frames
 from repro_torch.models.graph import compile_snn
@@ -338,7 +347,9 @@ class AsyncAMCServeEngine:
         engine.close()
 
     Runs on the card unless ``device="cpu"`` is given; without a CUDA
-    device it raises.  ``backend="auto"`` races ``candidates`` (default:
+    device it raises.  ``mesh`` (default: every card, when more than one is
+    present and ``device`` is None) shards each batch over a serving mesh.
+    ``backend="auto"`` races ``candidates`` (default:
     :func:`~repro_torch.serve.autotune.default_candidates` for the device)
     on the largest bucket and serves the winner; ``"per-layer"`` races
     them layer by layer and serves the winning assignment through the
@@ -376,9 +387,21 @@ class AsyncAMCServeEngine:
         quant_bits: int = 16,
         activity_gauges: bool = True,
     ):
+        if mesh is None and device is None and torch.cuda.device_count() > 1:
+            mesh = serve_mesh()
         if mesh is not None:
-            raise NotImplementedError("mesh serving is not ported yet")
-        self.device = resolve_device(device)
+            if not isinstance(mesh, ServeMesh):
+                raise TypeError(f"mesh must be a ServeMesh (repro_torch."
+                                f"distributed.sharding.serve_mesh()), not "
+                                f"{type(mesh).__name__}")
+            if device is not None and resolve_device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device!r} is not the first device "
+                                 f"of the mesh {mesh}")
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device)
+        self.mesh = mesh
+        self.devices = list(mesh.devices) if mesh is not None else [self.device]
         self.cfg = cfg
         self.name = name if name is not None else "engine"
         self.count_activity = count_activity
@@ -424,11 +447,13 @@ class AsyncAMCServeEngine:
             frame_shape=(ic0, cfg.input_width), max_batch=max_batch,
             max_delay_ms=max_delay_ms, buckets=buckets, max_queue=max_queue,
             pace_ms=pace_ms, priority_weights=priority_weights,
-            obs_counters=obs_counters)
+            obs_counters=obs_counters, align=len(self.devices))
 
         self._candidates = candidates
         self._autotune_reps = autotune_reps
         self.activity_gauges = activity_gauges
+        # the step's counters ride beside the logits only without a mesh
+        self._counters_wanted = activity_gauges and mesh is None
         self.autotune: Optional[AutotuneReport] = None
         self.perlayer: Optional[PerLayerAutotuneReport] = None
         self.assignment: Optional[Dict[str, str]] = None
@@ -447,10 +472,9 @@ class AsyncAMCServeEngine:
         # calibrates without LSQ state), LSQ fake-quant for the float
         # backends with LSQ state, None without.  The race compiled through
         # the same content-addressed cache, so its winner binds as a hit.
-        plan = compile_plan(self.program, params, masks=masks,
-                            quant_fn=serving_quant_fn(
-                                lsq_scales, quant_bits, assignment=assignment),
-                            assignment=assignment, device=self.device)
+        plans = self._plans(params, masks, lambda: serving_quant_fn(
+            lsq_scales, quant_bits, assignment=assignment), assignment)
+        plan = plans[0]
         self.backend = backend
         self.quant_bits = quant_bits
         self._m_batches = reg.counter(
@@ -463,7 +487,7 @@ class AsyncAMCServeEngine:
         # traffic unless a router is installed (deploy.router); a hot-swap
         # (deploy.swap) binds a new version off-thread, then flips _primary
         # between micro-batches.
-        first = self._bound(version_label, backend, plan, assignment,
+        first = self._bound(version_label, backend, plans, assignment,
                             self.sparse,
                             step=self._raced_step(raced, backend, plan))
         # readiness: set by the primary's warm-up (its graphs captured) or
@@ -492,11 +516,21 @@ class AsyncAMCServeEngine:
 
     # -- serving step -------------------------------------------------------
 
+    def _plans(self, params, masks, quant_fn, assignment, first=None):
+        """One plan of ``assignment`` per serving device (one without a
+        mesh), each compiled with a fresh ``quant_fn()``; ``first``, where
+        given, is the first device's."""
+        return [first if i == 0 and first is not None else compile_plan(
+            self.program, params, masks=masks, quant_fn=quant_fn(),
+            assignment=assignment, device=dev)
+            for i, dev in enumerate(self.devices)]
+
     def _race(self, params, masks, lsq_scales, quant_bits):
         """The whole-network race of the engine's candidates on the largest
         bucket, each timed through the served step it would serve with
-        (captured on the card): ``(report, {backend: (plan digest, step)})``
-        so that the winner's step, graphs and all, can serve."""
+        (captured on the card, sharded over the mesh): ``(report, {backend:
+        (plan digest, step)})`` so that the winner's step, graphs and all,
+        can serve."""
         candidates = self._candidates
         if candidates is None and lsq_scales is not None:
             # quantized serving: the integer `fixed` backend competes
@@ -509,7 +543,9 @@ class AsyncAMCServeEngine:
         raced: Dict[str, Any] = {}
 
         def make_fn(binding):
-            step = self._make_step(binding.plan, binding.backend)
+            plans = self._plans(params, masks, lambda: serving_quant_fn(
+                lsq_scales, quant_bits), binding.backend, first=binding.plan)
+            step = self._make_step(plans, binding.backend)
             raced[binding.backend] = (binding.plan.digest, step)
             return lambda _: step[0](probe)
 
@@ -535,43 +571,44 @@ class AsyncAMCServeEngine:
                 step[1].release()
         return keep
 
-    def _make_step(self, plan, assignment):
-        """``(serve_step, graphs)`` for ``plan``: Σ-Δ encode on the device
-        (the integer front end for the fixed tier), then the plan's
-        preferred batch; with live gauges, where the plan counts in its
-        step, ``plan.batch_counters`` with its counters packed beside the
-        logits, so both leave the device in one copy.  ``serve_step`` maps
-        (B, IC, L) raw I/Q (numpy) to ``(logits, {conv_name: (B,)
-        accumulations} or None)`` on the host; on the card it replays
-        ``graphs``, one CUDA graph per batch shape."""
+    def _make_step(self, plans, assignment):
+        """``(serve_step, graphs)`` for ``plans`` (one per serving device):
+        Σ-Δ encode on the device (the integer front end for the fixed tier),
+        then the plan's preferred batch; with live gauges, where the plan
+        counts in its step, ``plan.batch_counters`` with its counters packed
+        beside the logits, so both leave the device in one copy.
+        ``serve_step`` maps (B, IC, L) raw I/Q (numpy) to ``(logits,
+        {conv_name: (B,) accumulations} or None)`` on the host; on the card
+        it replays ``graphs``, one CUDA graph per batch shape and device,
+        and under a mesh each device serves its slice of the batch."""
         encode = _encoder(assignment)
         osr = self.cfg.timesteps
-        device = self.device
-        counters = self.activity_gauges and plan.supports_live_counters
+        counters = self._counters_wanted and plans[0].supports_live_counters
         layout = {"names": [], "n_classes": 0}
 
-        if counters:
-            def forward(x: torch.Tensor) -> torch.Tensor:
-                logits, accs = plan.batch_counters(encode(x, osr))
-                layout["names"] = list(accs)
-                layout["n_classes"] = logits.shape[1]
-                return torch.cat([logits] + [accs[n][:, None]
-                                             for n in layout["names"]], dim=1)
-        else:
+        def forward_of(plan):
+            if counters:
+                def forward(x: torch.Tensor) -> torch.Tensor:
+                    logits, accs = plan.batch_counters(encode(x, osr))
+                    layout["names"] = list(accs)
+                    layout["n_classes"] = logits.shape[1]
+                    return torch.cat([logits] + [accs[n][:, None]
+                                                 for n in layout["names"]],
+                                     dim=1)
+                return forward
             batch_fn = plan.preferred_batch()
+            return lambda x: batch_fn(encode(x, osr))
 
-            def forward(x: torch.Tensor) -> torch.Tensor:
-                return batch_fn(encode(x, osr))
-
-        graphs = CapturedStep(forward, device) if captures(
-            assignment, device) else None
+        forwards = [forward_of(plan) for plan in plans]
+        graphs = CapturedStep(forwards, self.devices) if captures(
+            assignment, self.device) else None
+        eager = shard_serve_fn(forwards, ServeMesh(self.devices))
 
         def run(iq: np.ndarray) -> np.ndarray:
             if graphs is not None:
                 return graphs(iq)
             with torch.inference_mode():
-                return forward(torch.as_tensor(iq, dtype=torch.float32,
-                                               device=device)).cpu().numpy()
+                return eager(np.asarray(iq, np.float32)).numpy()
 
         def serve_step(iq: np.ndarray):
             host = run(iq)
@@ -583,15 +620,16 @@ class AsyncAMCServeEngine:
 
         return serve_step, graphs
 
-    def _bound(self, label: str, backend: str, plan, assignment,
+    def _bound(self, label: str, backend: str, plans, assignment,
                sparse, step=None) -> BoundVersion:
-        """A :class:`BoundVersion` serving ``plan`` through ``step`` (a
-        ``(serve_step, graphs)`` pair; by default a new
-        :meth:`_make_step`)."""
+        """A :class:`BoundVersion` serving ``plans`` (one per serving
+        device) through ``step`` (a ``(serve_step, graphs)`` pair; by
+        default a new :meth:`_make_step`)."""
+        plan = plans[0]
         serve_step, graphs = (step if step is not None
-                              else self._make_step(plan, assignment))
+                              else self._make_step(plans, assignment))
         activity = (ActivityObserver(plan, engine=self.name)
-                    if self.activity_gauges and plan.supports_live_counters
+                    if self._counters_wanted and plan.supports_live_counters
                     else None)
         return BoundVersion(label=label, backend=backend,
                             serve_step=serve_step, plan=plan, sparse=sparse,
@@ -776,14 +814,12 @@ class AsyncAMCServeEngine:
                 report, raced = self._race(params, masks, lsq_scales, bits)
                 backend = report.choice
             assignment = backend
-        plan = compile_plan(self.program, params, masks=masks,
-                            quant_fn=serving_quant_fn(lsq_scales, bits,
-                                                      assignment=assignment),
-                            assignment=assignment, device=self.device)
+        plans = self._plans(params, masks, lambda: serving_quant_fn(
+            lsq_scales, bits, assignment=assignment), assignment)
         sparse = (sparsify_params(params, masks) if self.count_activity
                   else None)
-        ver = self._bound(label, backend, plan, assignment, sparse,
-                          step=self._raced_step(raced, backend, plan))
+        ver = self._bound(label, backend, plans, assignment, sparse,
+                          step=self._raced_step(raced, backend, plans[0]))
         if warmup:  # every bucket once, so the flip never stalls
             self._warm(ver)
         with self._lock:

@@ -31,7 +31,9 @@ def _qrange(bits: int):
 
 
 def _grad_scale(w: torch.Tensor, qmax: int) -> torch.Tensor:
-    n = torch.tensor(float(w.numel()), dtype=torch.float32, device=w.device)
+    # filled on the device: a copy from the host could not be captured in
+    # the trainer's CUDA graph
+    n = torch.full((), float(w.numel()), dtype=torch.float32, device=w.device)
     return 1.0 / torch.sqrt(n * qmax)
 
 

@@ -20,9 +20,30 @@ Port of ``repro/train/trainer.py``, the paper's training recipe:
 
 Each step generates its batch on the host (numpy RadioML, then the numpy
 Σ-Δ encoder) and copies it to the device once; with ``augment_scenario``
-the clean frames first run through that channel scenario on the device.  The trainer runs on the
-card unless ``device="cpu"`` is passed.  It expects float32 products: keep
-``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default).
+the clean frames first run through that channel scenario on the device.
+The trainer runs on the card unless ``device="cpu"`` is passed.  It
+expects float32 products: keep ``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` off (PyTorch's default).
+
+On the card the step is captured in CUDA graphs (:mod:`repro_torch.train.
+capture`, the port of the reference's ``jax.jit``): one graph per
+``(use_masks, batch shape)`` holds the forward, the BPTT backward, the
+mask product on the gradients, the clip, AdamW and the LSQ step, and
+:meth:`SNNTrainer.run` replays it without waiting for the card, reading
+the loss only on a logging step, so the host generates the next batch
+while the card runs the step.  :meth:`SNNTrainer.evaluate` replays one
+graph per batch shape and masks variant.  ``capture=False`` runs the same
+steps op by op (what a replay is held to); on the CPU they always run so.
+A step that fails to capture raises; it never runs eagerly instead.
+
+The state contract: ``params``, ``opt_state``, ``lsq_scales`` and
+``masks`` live in fixed buffers that the graphs read and write.  A tree
+read from one of those attributes is a copy, made at the first read after
+a step, so later steps never change it; a tree assigned to one of them is
+copied into the buffers before the next step, so assigning (``resume``,
+a reprune, the reference's weights) needs no new capture.
+:meth:`SNNTrainer._gradients` and :meth:`SNNTrainer._train_step` stay
+pure functions of the trees they are given.
 
 Weights start from the port's numpy-seeded :func:`init_snn`, so they
 differ from the reference's jax-keyed ones; to train from the reference's
@@ -45,6 +66,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.graph import compile_snn
 from repro_torch.models.snn import SNNConfig, init_snn
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from .capture import StaticStep, TrainState
 from .checkpoint import CheckpointManager
 from .lsq import init_lsq_scales, lsq_fake_quant
 from .optimizer import adamw, apply_updates, clip_by_global_norm
@@ -110,10 +132,27 @@ def _requiring_grad(tree):
 
 
 class SNNTrainer:
-    def __init__(self, model_cfg: SNNConfig, cfg: TrainerConfig, device=None):
+    """The paper's trainer on ``device`` (the card unless ``"cpu"``).
+
+    ``capture`` (default: on a CUDA device) runs :meth:`run`'s steps and
+    :meth:`evaluate`'s forwards by CUDA-graph replay; ``False`` runs them
+    op by op on the same buffers.  Reading ``params``, ``opt_state``,
+    ``lsq_scales`` or ``masks`` gives a copy that later steps leave alone;
+    assigning one takes effect at the next step (the module docstring).
+    """
+
+    def __init__(self, model_cfg: SNNConfig, cfg: TrainerConfig, device=None,
+                 capture: Optional[bool] = None):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.capture = (self.device.type == "cuda" if capture is None
+                        else capture)
+        self._state = TrainState(self.device)
+        # BPTT warms up a few times before its capture, as torch's
+        # whole-network recipe does; the forward once
+        self._steps = StaticStep(self.device, self.capture, warmups=3)
+        self._evals = StaticStep(self.device, self.capture, warmups=1)
         self.params = tree_map(lambda x: x.to(self.device),
                                init_snn(cfg.seed, model_cfg))
         self.opt_init, self.opt_update = adamw(cfg.lr,
@@ -132,14 +171,48 @@ class SNNTrainer:
         self._classes = (tuple(range(model_cfg.n_classes))
                          if model_cfg.n_classes < N_CLASSES else None)
 
+    # -- state (fixed buffers behind copies; see the module docstring) -------
+
+    @property
+    def params(self):
+        return self._state.get("params")
+
+    @params.setter
+    def params(self, tree) -> None:
+        self._state.set("params", tree)
+
+    @property
+    def opt_state(self):
+        return self._state.get("opt")
+
+    @opt_state.setter
+    def opt_state(self, tree) -> None:
+        self._state.set("opt", tree)
+
+    @property
+    def lsq_scales(self):
+        return self._state.get("lsq")
+
+    @lsq_scales.setter
+    def lsq_scales(self, tree) -> None:
+        self._state.set("lsq", tree)
+
+    @property
+    def masks(self):
+        return self._state.get("masks")
+
+    @masks.setter
+    def masks(self, tree) -> None:
+        self._state.set("masks", tree)
+
     # -- data ---------------------------------------------------------------
 
-    def _batch(self, seed: int, snr_db: Optional[float], scenario=None):
-        """One host batch, encoded, then copied to the device once:
-        ``(frames (B, T, 2, L), labels (B,) int64 on the device, labels as
-        numpy)``.  With a ``scenario`` the frames are generated clean and
-        run through its channel (on the trainer's device, drawn from
-        ``seed``) instead of the legacy dataset channel."""
+    def _host_batch(self, seed: int, snr_db: Optional[float], scenario=None):
+        """One batch on the host: ``(frames (B, T, 2, L) float32, labels
+        (B,) int64)``, encoded.  With a ``scenario`` the frames are
+        generated clean and run through its channel (on the trainer's
+        device, drawn from ``seed``) instead of the legacy dataset
+        channel."""
         iq, labels, snrs = generate_batch(
             seed, self.cfg.batch_size, snr_db,
             frame_len=self.model_cfg.input_width, classes=self._classes,
@@ -147,10 +220,14 @@ class SNNTrainer:
         if scenario is not None:
             iq = apply_scenario_np(scenario, iq, snrs, seed,
                                    device=self.device)
-        frames = sigma_delta_encode_np(iq, self.cfg.osr)
+        return sigma_delta_encode_np(iq, self.cfg.osr), labels.astype(np.int64)
+
+    def _batch(self, seed: int, snr_db: Optional[float], scenario=None):
+        """:meth:`_host_batch` copied to the device once: ``(frames,
+        labels on the device, labels as numpy)``."""
+        frames, labels = self._host_batch(seed, snr_db, scenario)
         return (torch.from_numpy(frames).to(self.device),
-                torch.from_numpy(labels.astype(np.int64)).to(self.device),
-                labels)
+                torch.from_numpy(labels).to(self.device), labels)
 
     # -- core step ----------------------------------------------------------
 
@@ -166,9 +243,11 @@ class SNNTrainer:
         loss, acc = _loss_fn(p, s, frames, labels, self.model_cfg, masks,
                              use_lsq, self.cfg.quant_bits, self.device)
         p_leaves = tree_leaves(p)
-        loss.backward()
-        grads = [torch.zeros_like(x) if x.grad is None else x.grad
-                 for x in p_leaves + tree_leaves(s)]
+        leaves = p_leaves + tree_leaves(s)
+        # returned, not accumulated into .grad: a replayed graph must not
+        # add to an earlier replay's gradients
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         n = len(p_leaves)
         g_params = tree_unflatten(params, grads[:n])
         g_scales = tree_unflatten(lsq_scales, grads[n:]) if use_lsq else None
@@ -190,6 +269,32 @@ class SNNTrainer:
                 lsq_scales = tree_map(lambda s, g: s - 1e-4 * g, lsq_scales,
                                       g_scales)
         return params, opt_state, lsq_scales, loss, acc, gnorm
+
+    def _step_on_buffers(self, frames: np.ndarray, labels: np.ndarray):
+        """One :meth:`_train_step` on the state buffers, the new state
+        written back into them: by graph replay with ``capture`` (one graph
+        per ``(use_masks, batch shape)``, the jit's static argument and
+        retrace), else op by op.  Returns ``(loss, acc, gnorm)`` on the
+        device, not waited for."""
+        bufs = self._state.buffers()
+        use_masks = bufs["masks"] is not None and self.masks is not None
+
+        def fn(inp, commit: bool):
+            new = self._train_step(bufs["params"], bufs["opt"], bufs["lsq"],
+                                   bufs["masks"] if use_masks else None,
+                                   inp["frames"], inp["labels"])
+            if commit:
+                with torch.no_grad():
+                    for name, tree in zip(("params", "opt", "lsq"), new[:3]):
+                        for dst, src in zip(tree_leaves(bufs[name]),
+                                            tree_leaves(tree)):
+                            dst.copy_(src)
+            return new[3:]
+
+        out = self._steps((use_masks, frames.shape),
+                          {"frames": frames, "labels": labels}, fn)
+        self._state.written(("params", "opt", "lsq"))
+        return out
 
     # -- pruning schedule ---------------------------------------------------
 
@@ -258,12 +363,10 @@ class SNNTrainer:
         while self.step < end:
             t0 = time.perf_counter()
             self._maybe_reprune()
-            frames, labels, _ = self._batch(
+            frames, labels = self._host_batch(
                 self.cfg.seed * 7_919 + self.step, self.cfg.snr_db,
                 self.cfg.augment_scenario)
-            (self.params, self.opt_state, self.lsq_scales, loss, acc,
-             _) = self._train_step(self.params, self.opt_state,
-                                   self.lsq_scales, self.masks, frames, labels)
+            loss, acc, _ = self._step_on_buffers(frames, labels)
             self.step += 1
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
@@ -287,17 +390,31 @@ class SNNTrainer:
 
     def evaluate(self, n_batches: int = 4, snr_db: Optional[float] = None,
                  seed: int = 10_000, scenario=None) -> float:
-        """Accuracy over fresh batches (``dense`` through ``apply_batch``);
+        """Accuracy over fresh batches (the masked ``dense`` forward);
         ``scenario`` evaluates under an injected :mod:`repro_torch.channel`
         condition instead of the legacy dataset channel."""
-        program = compile_snn(self.model_cfg)
         correct, total = 0, 0
         for b in range(n_batches):
-            frames, _, labels = self._batch(seed + b, snr_db, scenario)
-            with torch.no_grad():
-                logits = program.apply_batch(self.params, frames, "dense",
-                                             masks=self.masks,
-                                             device=self.device)
-            correct += int((logits.argmax(-1).cpu().numpy() == labels).sum())
+            frames, labels = self._host_batch(seed + b, snr_db, scenario)
+            logits = self._eval_logits(frames, self.masks is not None)
+            correct += int((logits.argmax(-1) == labels).sum())
             total += len(labels)
         return correct / total
+
+    def _eval_logits(self, frames: np.ndarray, use_masks: bool) -> np.ndarray:
+        """Logits of ``frames`` (B, T, 2, L) on the host: the ``dense``
+        bind of the state buffers (what ``apply_batch(..., "dense")``
+        computes, without its plan's host-side hashing), by graph replay
+        with ``capture`` (one graph per batch shape and masks variant)."""
+        bufs = self._state.buffers()
+        program = compile_snn(self.model_cfg)
+
+        def fn(inp, commit: bool):
+            with torch.no_grad():
+                return program._bind(
+                    bufs["params"], "dense",
+                    masks=bufs["masks"] if use_masks else None,
+                    device=self.device).batch(inp["frames"])
+
+        return self._evals((use_masks, frames.shape), {"frames": frames},
+                           fn).cpu().numpy()

@@ -717,3 +717,125 @@ def test_capture_while_other_engines_serve(cuda):
         np.testing.assert_array_equal(got, want1)
         busy.swap_to("v2")
         np.testing.assert_array_equal(busy.classify(iq), goap_preds(p2, m2))
+
+
+# ---------------------------------------------------------------------------
+# the trainer's captured step, mesh serving, the stage pipeline, compression
+# ---------------------------------------------------------------------------
+
+def _train_pair(cuda, steps):
+    """A captured and an eager trainer from one state: per-layer masks
+    recomputed every 2 steps over a ``steps``-step schedule, 16-bit LSQ."""
+    from repro_torch.train import SNNTrainer, TrainerConfig
+
+    density = {"conv1": 0.5, "conv2": 0.4, "conv3": 0.3, "fc1": 0.4, "fc2": 0.5}
+    tcfg = TrainerConfig(total_steps=steps, batch_size=8, osr=2, use_lsq=True,
+                         per_layer_density=density, prune_every=2)
+    return (SNNTrainer(TRAIN_SMALL, tcfg, device=cuda),
+            SNNTrainer(TRAIN_SMALL, tcfg, device=cuda, capture=False))
+
+
+@pytest.mark.cuda
+def test_captured_train_steps_bit_equal_to_eager_across_reprunes(cuda):
+    from repro_torch.tree import tree_leaves
+
+    cap, eager = _train_pair(cuda, 8)
+    assert cap.capture and not eager.capture
+    before = cap.params
+    copy = [x.clone() for x in tree_leaves(before)]
+    h_cap = cap.run(steps=8, log_every=1)
+    h_eager = eager.run(steps=8, log_every=1)
+    assert h_cap["loss"] == h_eager["loss"]
+    for x, y in zip(tree_leaves(cap._state_tree()),
+                    tree_leaves(eager._state_tree())):
+        assert torch.equal(x, y)
+    # reprunes at steps 0, 2, 4 and 6 copy new masks in: no recapture
+    assert cap._steps.captures == 1 and len(cap._steps.keys()) == 1
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(before), copy))
+
+
+@pytest.mark.cuda
+def test_captured_evaluate_equals_eager(cuda):
+    cap, eager = _train_pair(cuda, 4)
+    cap.run(steps=4)
+    eager.run(steps=4)
+    frames, _ = cap._host_batch(10_000, 10.0)
+    np.testing.assert_array_equal(cap._eval_logits(frames, True),
+                                  eager._eval_logits(frames, True))
+    assert cap.evaluate(n_batches=2, snr_db=10.0) == \
+        eager.evaluate(n_batches=2, snr_db=10.0)
+    assert cap._evals.captures == 1
+
+
+@pytest.mark.cuda
+def test_assigned_params_take_effect_without_recapture(cuda):
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cap, eager = _train_pair(cuda, 4)
+    cap.run(steps=1)
+    eager.run(steps=1)
+    new = tree_map(lambda x: x * 0.5, cap.params)
+    cap.params, eager.params = new, tree_map(torch.clone, new)
+    cap.run(steps=2, log_every=1)
+    eager.run(steps=2, log_every=1)
+    assert cap._steps.captures == 1
+    for x, y in zip(tree_leaves(cap.params), tree_leaves(eager.params)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_mesh_engine_replay_equals_its_eager_step(cuda):
+    from repro_torch.distributed.sharding import serve_mesh
+
+    _, params, masks = _plan(SMALL, 50, cuda, backend="goap")
+    iq = _iq(SMALL, 64, 51)
+    mesh = serve_mesh()
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda_fused",
+                             max_batch=8, mesh=mesh) as engine:
+        assert engine.activity is None
+        assert all(b % mesh.size == 0 for b in engine.batcher.buckets)
+        graphs = engine.get_version("default").graphs
+        for b in engine.batcher.buckets:
+            np.testing.assert_array_equal(graphs(iq[:b]), graphs.eager(iq[:b]))
+        preds = engine.classify(iq)
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda_fused",
+                             max_batch=8, device=cuda) as single:
+        np.testing.assert_array_equal(preds, single.classify(iq))
+
+
+@pytest.mark.cuda
+def test_snn_pipeline_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.configs.saocds_amc import CONFIG
+    from repro_torch.examples.snn_pipeline import pipeline_logits, stage_devices
+
+    params = init_snn(52, CONFIG)
+    rng = np.random.default_rng(53)
+    frames = (rng.random((8, CONFIG.timesteps, 2, CONFIG.input_width))
+              < 0.5).astype(np.float32)
+    got = pipeline_logits(CONFIG, params, frames, stage_devices(cuda))
+    want = pipeline_logits(CONFIG, params, frames, [torch.device("cpu")] * 4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_compressed_psum_over_one_nccl_rank(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import (compressed_psum,
+                                                     dequantize_int8,
+                                                     ef_compress)
+
+    g = {"w": torch.randn(64, device=cuda), "b": [torch.randn(3, 5, device=cuda)]}
+    ef = {"w": torch.zeros(64, device=cuda), "b": [torch.zeros(3, 5, device=cuda)]}
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "s"), 1),
+                            rank=0, world_size=1)
+    try:
+        mean, new_ef = compressed_psum(g, ef)
+    finally:
+        dist.destroy_process_group()
+    q, s, want_ef = ef_compress(g, ef)
+    want = dequantize_int8(q, s)
+    assert torch.equal(mean["w"], want["w"])
+    assert torch.equal(mean["b"][0], want["b"][0])
+    assert torch.equal(new_ef["w"], want_ef["w"])

@@ -45,8 +45,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 # the modules of the measurement plane, the integer tier, the training
 # path, the paper's table scripts, the backend race, the plan cache's disk
 # tier, the channel scenarios, the robustness evaluation, the model
-# lifecycle, the fleet, the obs analysis plane, the served step's capture
-# and the serving CLI, each imported alone in a fresh interpreter
+# lifecycle, the fleet, the obs analysis plane, the served step's capture,
+# the serving CLI, the trainer's captured step, the SNN's distributed
+# pieces and the examples, each imported alone in a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
           "repro_torch.train.lsq", "repro_torch.data.radioml",
@@ -70,7 +71,13 @@ _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.slo", "repro_torch.obs.anomaly",
           "repro_torch.obs.export", "repro_torch.obs.http",
           "repro_torch.serve.capture", "repro_torch.kernels.launches",
-          "repro_torch.launch.serve"]
+          "repro_torch.launch.serve", "repro_torch.train.capture",
+          "repro_torch.distributed", "repro_torch.distributed.sharding",
+          "repro_torch.distributed.pipeline",
+          "repro_torch.distributed.compression", "repro_torch.examples",
+          "repro_torch.examples.quickstart", "repro_torch.examples.amc_train",
+          "repro_torch.examples.amc_serve", "repro_torch.examples.amc_deploy",
+          "repro_torch.examples.snn_pipeline"]
 
 
 @pytest.mark.parametrize("module", _ALONE)

@@ -203,9 +203,17 @@ def test_engine_needs_cuda_or_an_explicit_cpu(weights):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             AsyncAMCServeEngine(tparams, SMALL, tmasks, warmup=False)
-    with pytest.raises(NotImplementedError):
+    # mesh serving is ported: a serving mesh constructs, anything else is
+    # refused
+    from repro_torch.distributed.sharding import serve_mesh
+
+    with pytest.raises(TypeError, match="ServeMesh"):
         AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
                             warmup=False, mesh=object())
+    with AsyncAMCServeEngine(tparams, SMALL, tmasks, device="cpu",
+                             warmup=False, backend="goap",
+                             mesh=serve_mesh(1, device_type="cpu")) as engine:
+        assert engine.mesh.size == 1
     # activity counting and quantized serving are ported: they construct
     from repro_torch.train.lsq import init_lsq_scales
 
