@@ -153,7 +153,26 @@ file; exits non-zero without them.  In order, it
     prints its seconds;
 20. runs the five SNN examples in process on the card with tiny budgets
     (``examples_phase``; each must return 0);
-21. prints the whole run's seconds, one JSON line of per-kernel results,
+21. runs the language-model zoo (``zoo_phase``, with the launch counts set
+    to 0 just before it and read just after: it must launch none of the
+    four kernels).  All 10 architectures at their reduced configs, the
+    same params on the card and on the CPU: the card's
+    ``lm_forward`` / ``whisper_forward`` logits within 1e-4 of the CPU's,
+    one ``LMTrainer`` step's loss within 1e-5 relative of the CPU's, and
+    ``prefill(t[:-1]) + decode(t[-1])`` equal to ``forward(t)``'s last
+    logits within 2e-2 (MoE at capacity factor 8.0).  qwen1.5-0.5b at
+    full width: ``launch.train.main(["--arch", "qwen1.5-0.5b", "--scale",
+    "full", "--steps", "4", "--batch", "4", "--seq", "256"])`` exits 0
+    with a finite loss; a trainer at that size is timed (median step ms
+    host to host, each step waited for), profiled (the card's busy share
+    of a step, ``torch.profiler``) and its peak memory read
+    (``torch.cuda.max_memory_allocated``); ``launch.serve.generate`` on
+    its params (batch 4, prompt 64, 32 new tokens) gives tokens/s; the
+    prefill/decode gate holds at full width.  mamba2-780m at full width:
+    ``lm_forward`` at batch 2 x seq 256, timed, and the same gate.  Prints
+    ``zoo_phase`` with every number beside the card's name and power
+    limit;
+22. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -518,7 +537,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-20 on ``device``; returns the kernels JSON object."""
+    """Phases 3-21 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -650,6 +669,8 @@ def run(device, timers: Timers, seed: int = SEED):
     run_pipeline_phase(device)
     print("phase: examples")
     run_examples_phase(device)
+    print("phase: zoo")
+    paths["zoo"] = run_zoo_phase(device, seed)["launches"]
     for row in result["kernels"]:
         for path, counts in paths.items():
             row["launches_by_path"][path] = counts[row["name"]]
@@ -2198,6 +2219,242 @@ def run_examples_phase(device) -> dict:
             raise AssertionError(f"example {name} exited {rc}")
     line = {"seconds": seconds, "card": nvidia_smi()}
     print(f"examples_phase {json.dumps(line)}")
+    return line
+
+
+ZOO_B, ZOO_S = 2, 16
+ZOO_FWD_ATOL = 1e-4
+ZOO_LOSS_RTOL = 1e-5
+ZOO_SERVE_TOL = 2e-2
+FULL_TRAIN_ARGS = ["--arch", "qwen1.5-0.5b", "--scale", "full", "--steps", "4",
+                   "--batch", "4", "--seq", "256"]
+FULL_TIMED_STEPS = 3
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 64, 32
+MAMBA_B, MAMBA_S = 2, 256
+
+
+def _zoo_inputs(cfg, rng, batch: int, seq: int):
+    """Tokens and the stub frontend input of a zoo arch, from numpy."""
+    import numpy as np
+
+    toks = rng.integers(0, cfg.vocab, (batch, seq)).astype(np.int32)
+    extra = None
+    if cfg.family == "vlm":
+        extra = rng.normal(size=(batch, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        extra = rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32)
+    return toks, extra
+
+
+def _zoo_forward(cfg, params, toks, extra):
+    from repro_torch.models.lm import lm_forward
+    from repro_torch.models.whisper import whisper_forward
+
+    if cfg.family == "encdec":
+        return whisper_forward(params, extra, toks, cfg)
+    return lm_forward(params, toks, cfg, patch_embeds=extra)
+
+
+def _serve_gap(cfg, params, toks, extra) -> float:
+    """max |prefill(t[:-1]) + decode(t[-1]) - forward(t)| over the last
+    position's real vocab, relative to the tolerance's scale
+    (``|a - b| / (1 + |b|)``, so <= ZOO_SERVE_TOL is allclose with atol =
+    rtol = ZOO_SERVE_TOL)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm, whisper
+
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=8.0)
+    b, s = toks.shape
+    with torch.no_grad():
+        full = _zoo_forward(cfg, params, toks, extra)
+        if cfg.family == "encdec":
+            _, st = whisper.whisper_prefill(params, extra, toks[:, : s - 1], cfg)
+            big = whisper.init_whisper_decode_state(cfg, b, s, s,
+                                                    dtype=st["self_k"].dtype,
+                                                    device=toks.device)
+            big["self_k"][:, :, : s - 1] = st["self_k"]
+            big["self_v"][:, :, : s - 1] = st["self_v"]
+            big.update(cross_k=st["cross_k"], cross_v=st["cross_v"], len=st["len"])
+            step, _ = whisper.whisper_decode_step(params, big, toks[:, -1:], cfg)
+        else:
+            _, states = lm.lm_prefill(params, toks[:, : s - 1], cfg,
+                                      patch_embeds=extra, cache_headroom=1)
+            step, _ = lm.lm_decode_step(params, states, toks[:, -1:], cfg)
+    want = full[:, -1, : cfg.vocab].float()
+    got = step[:, -1, : cfg.vocab].float()
+    return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+
+def _quiet(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with its standard output kept; returns
+    (result, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def run_zoo_phase(device, seed: int = SEED) -> dict:
+    """Phase 21: the language-model zoo on the card (see the module
+    docstring).  Returns the phase's line, with the launch counts."""
+    import gc
+    import math
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import LMTrainer
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import lm as lm_module
+    from repro_torch.models.lm import init_lm
+    from repro_torch.models.whisper import init_whisper
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def on(x, dev):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    card = nvidia_smi()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    line = {"reduced": {}, "card": card}
+    failures = []
+    for arch in ARCH_IDS:
+        cfg = reduced_config(arch)
+        gen = torch.Generator().manual_seed(seed)
+        if cfg.family == "encdec":
+            cpu_params = init_whisper(gen, cfg, max_dec_pos=4 * ZOO_S)
+        else:
+            cpu_params = init_lm(gen, cfg)
+        params = tree_map(lambda t: t.to(device), cpu_params)
+        toks, extra = _zoo_inputs(cfg, np.random.default_rng(seed), ZOO_B, ZOO_S)
+        with torch.no_grad():
+            got = _zoo_forward(cfg, params, on(toks, device), on(extra, device))
+            want = _zoo_forward(cfg, cpu_params, on(toks, "cpu"), on(extra, "cpu"))
+        fwd = float((got[..., : cfg.vocab].cpu() - want[..., : cfg.vocab]).abs().max())
+        losses = {}
+        for dev in (device, "cpu"):
+            trainer = LMTrainer(cfg, batch=ZOO_B, seq=ZOO_S, seed=seed, device=dev)
+            hist, _ = _quiet(trainer.run, 1, log_every=1)
+            losses[str(dev)] = hist["loss"][0]
+        card_loss, cpu_loss = losses[str(device)], losses["cpu"]
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        gap = _serve_gap(cfg, params, on(toks, device), on(extra, device))
+        row = {"fwd_max_abs_diff_vs_cpu": fwd, "loss": card_loss,
+               "loss_rel_diff_vs_cpu": loss_rel, "prefill_decode_gap": gap}
+        line["reduced"][arch] = row
+        if not (fwd <= ZOO_FWD_ATOL and loss_rel <= ZOO_LOSS_RTOL
+                and gap <= ZOO_SERVE_TOL and math.isfinite(card_loss)):
+            failures.append((arch, row))
+    line["reduced_s"] = time.perf_counter() - t_phase
+
+    # qwen1.5-0.5b at full width, through the training entry point
+    t0 = time.perf_counter()
+    rc, out = _quiet(train_main, FULL_TRAIN_ARGS + ["--device", str(device)])
+    torch.cuda.synchronize()
+    found = re.search(r"final loss (\S+)", out)
+    final_loss = float(found.group(1)) if found else float("nan")
+    line["full_train"] = {"argv": FULL_TRAIN_ARGS, "rc": rc,
+                          "final_loss": final_loss,
+                          "seconds": time.perf_counter() - t0,
+                          "cli_line": out.strip().splitlines()[-1] if out else ""}
+    if rc != 0 or not math.isfinite(final_loss):
+        failures.append(("qwen1.5-0.5b launch.train", line["full_train"]))
+
+    # a trainer of that size: step time, busy share, peak memory
+    cfg = get_config("qwen1.5-0.5b")
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer = LMTrainer(cfg, batch=4, seq=256, seed=seed, device=device)
+    timing, _ = _quiet(step_ms, trainer, FULL_TIMED_STEPS)
+    prof, _ = _quiet(profile_steps, lambda: trainer.run(1, log_every=1), 2)
+    peak = torch.cuda.max_memory_allocated(device)
+    # the same steps with the layers' recomputation off (a measurement of
+    # what torch.utils.checkpoint costs here, not a mode of the port)
+    torch.cuda.reset_peak_memory_stats(device)
+    remat = lm_module.remat
+    lm_module.remat = lambda fn, *args: fn(*args)
+    try:
+        no_remat, _ = _quiet(step_ms, trainer, FULL_TIMED_STEPS)
+    finally:
+        lm_module.remat = remat
+    no_remat["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    busy = prof["device_busy_ms"]
+    line["full_step"] = {
+        **timing, **prof, "peak_memory_bytes": peak,
+        # as the SNN train phase: the card's busy ms against a waited step
+        "device_idle_share": (1.0 - busy / timing["step_ms_waited"])
+        if busy else None,
+        "params": sum(t.numel() for t in tree_leaves(trainer.params)),
+        "without_recompute": no_remat,
+        "tokens_per_step": 4 * 256, "steps_taken": trainer.step, "card": card}
+
+    # greedy generation on the trained full-width params
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)
+                                            ).astype(np.int32)).to(device)
+    generate(cfg, trainer.params, prompts, 1)                   # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = generate(cfg, trainer.params, prompts, GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    ok_tokens = (tuple(tokens.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
+                 and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    gap = _serve_gap(cfg, trainer.params, prompts, None)
+    line["full_generate"] = {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                             "new_tokens": GEN_NEW, "seconds": gen_s,
+                             "tokens_per_s": GEN_BATCH * GEN_NEW / gen_s,
+                             "prefill_decode_gap": gap, "card": card}
+    if not ok_tokens or gap > ZOO_SERVE_TOL:
+        failures.append(("qwen1.5-0.5b generate", line["full_generate"]))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # mamba2-780m at full width: the family whose core is a scan
+    cfg = get_config("mamba2-780m")
+    params = init_lm(torch.Generator(device=device).manual_seed(seed), cfg)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MAMBA_B, MAMBA_S)).astype(np.int32)).to(device)
+    with torch.no_grad():
+        logits = _zoo_forward(cfg, params, toks, None)          # warm
+        torch.cuda.synchronize()
+        fwd_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logits = _zoo_forward(cfg, params, toks, None)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    finite = bool(torch.isfinite(logits[..., : cfg.vocab]).all())
+    gap = _serve_gap(cfg, params, toks, None)
+    line["mamba2_full"] = {"batch": MAMBA_B, "seq": MAMBA_S,
+                           "forward_ms": statistics.median(fwd_ms),
+                           "forward_ms_all": fwd_ms, "finite": finite,
+                           "prefill_decode_gap": gap, "card": card}
+    if not finite or gap > ZOO_SERVE_TOL:
+        failures.append(("mamba2-780m", line["mamba2_full"]))
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    line["launches"] = counts
+    line["seconds"] = time.perf_counter() - t_phase
+    print(f"zoo_phase {json.dumps(line)}")
+    if failures:
+        raise AssertionError(f"zoo phase gates failed: {failures}")
+    expect_launches(counts, set(), "zoo path")
     return line
 
 

@@ -4,14 +4,15 @@ Port of ``repro/data/pipeline.py``: the batched Σ-Δ encoders (a numpy one
 for the host and a torch one that runs wherever its input lies; the serve
 engine runs it on the card, ahead of the fused kernel), both giving the
 reference's bits exactly, and :class:`SpikeBatchPipeline`, the background
-producer of encoded RadioML batches.  The reference's LM token streams
-wait for the model zoo.
+producer of encoded RadioML batches, and the language-model zoo's
+synthetic token stream (:func:`lm_token_batches`, numpy, element for
+element the reference's).
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ from repro_torch.data.radioml import RadioMLDataset
 from repro_torch.device import resolve_device
 
 __all__ = ["sigma_delta_encode_np", "sigma_delta_encode_batch",
-           "SpikeBatchPipeline"]
+           "SpikeBatchPipeline", "lm_token_batches"]
 
 
 def sigma_delta_encode_np(iq: np.ndarray, osr: int) -> np.ndarray:
@@ -163,3 +164,16 @@ class SpikeBatchPipeline:
         except queue.Empty:
             pass
         self._put_sentinel()
+
+
+def lm_token_batches(
+    batch: int, seq_len: int, vocab: int, seed: int = 0
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Deterministic Zipf-ish token stream: yields (tokens, labels)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq_len + 1), p=probs).astype(np.int32)
+        yield toks[:, :-1], toks[:, 1:]

@@ -12,8 +12,10 @@ replicas on the one card behind the fleet router; ``--metrics-port``,
 observability plane.  The flags and the printed report are the
 reference's (``repro/launch/serve.py``), plus ``--device``.
 
-The language-model architectures of the reference's launcher wait for
-the model zoo; any other ``--arch`` exits non-zero.
+``--arch <assigned-lm-id>`` runs batched greedy generation on the reduced
+config (:func:`generate`: one prefill that builds the decode state, then
+``--new-tokens`` decode steps, eagerly), reporting tokens/s; the
+encoder-decoder ``whisper-large-v3`` returns 1, as in the reference.
 
 Examples::
 
@@ -24,6 +26,9 @@ Examples::
     # a registry version on the CPU
     python -m repro_torch.launch.serve --arch saocds-amc --device cpu \\
         --registry ./registry --model amc@production --backend goap
+
+    # greedy generation on a reduced language model, on the card
+    python -m repro_torch.launch.serve --arch llama3-8b --batch 4
 """
 from __future__ import annotations
 
@@ -35,13 +40,76 @@ import time
 
 import numpy as np
 
-__all__ = ["main"]
+from repro_torch.configs.registry import ARCH_IDS
+
+__all__ = ["generate", "main"]
+
+
+def generate(cfg, params, prompts, n_new: int):
+    """Greedy decode: prompts (B, S) -> (B, S + n_new) int32 tokens, on the
+    prompts' device.  One prefill with room for ``n_new`` tokens in its
+    caches, then ``n_new`` decode steps; ties go to the lowest token id,
+    as ``jnp.argmax`` gives them."""
+    import torch
+
+    from repro_torch.models.lm import lm_decode_step, lm_prefill
+
+    b = prompts.shape[0]
+    patch = None
+    if cfg.family == "vlm":
+        patch = torch.zeros((b, cfg.n_patches, cfg.d_model),
+                            dtype=torch.bfloat16, device=prompts.device)
+
+    def greedy(logits):
+        return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1
+                            ).to(torch.int32)[:, None]
+
+    with torch.no_grad():
+        logits, states = lm_prefill(params, prompts, cfg, patch_embeds=patch,
+                                    cache_headroom=n_new)
+        out = [prompts.to(torch.int32)]
+        token = greedy(logits)
+        for _ in range(n_new):
+            out.append(token)
+            logits, states = lm_decode_step(params, states, token, cfg)
+            token = greedy(logits)
+    return torch.cat(out, dim=1)
+
+
+def _serve_lm(args) -> int:
+    """The reference's LM branch: greedy generation on the reduced config
+    with params from seed 0, prompts from ``np.random.default_rng(0)``."""
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.lm import init_lm
+
+    cfg = reduced_config(args.arch)
+    if cfg.family == "encdec":
+        print("whisper serving demo lives in examples/; use --arch of a "
+              "decoder-only config here")
+        return 1
+    device = resolve_device(args.device)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device=device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)
+    ).to(device)
+    t0 = time.perf_counter()
+    tokens = generate(cfg, params, prompts, args.new_tokens)
+    tokens = tokens.cpu()   # waits for the card
+    dt = time.perf_counter() - t0
+    n_gen = args.batch * args.new_tokens
+    print(f"generated {tuple(tokens.shape)} in {dt:.2f}s "
+          f"({n_gen / dt:.1f} tok/s, eager)")
+    return 0
 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    choices=list(ARCH_IDS) + ["saocds-amc"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--requests", type=int, default=64,
                     help="saocds-amc: number of I/Q frames to classify")
@@ -135,10 +203,7 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     if args.arch != "saocds-amc":
-        print(f"--arch {args.arch!r}: only saocds-amc serves in the port; the "
-              "language-model zoo is not ported yet (ROADMAP Queue 1, the "
-              "model zoo)", file=sys.stderr)
-        return 2
+        return _serve_lm(args)
 
     from repro_torch.configs.saocds_amc import CONFIG
     from repro_torch.data.radioml import generate_batch

@@ -1,65 +1,227 @@
-"""Training entry point: ``python -m repro_torch.launch.train --arch saocds-amc``.
+"""Training entry point: ``python -m repro_torch.launch.train --arch <id>``.
 
-Trains the paper's SNN classifier end to end on the card (``--device
-cpu`` for the CPU): Σ-Δ encoded synthetic RadioML, surrogate-gradient
-BPTT, optional pruning (``--density``) and 16-bit LSQ (``--lsq``),
-checkpointed every ``--ckpt-every`` steps and resumable (``--resume``),
-with a straggler monitor flagging steps above 3x the trailing median.  On
-the card each step replays the trainer's CUDA graph without waiting for
-it; the median step time printed is the host's, step to step.
-The language-model architectures of the reference's launcher wait for the
-model zoo; any other ``--arch`` exits non-zero.
+Port of ``repro/launch/train.py``; runs on the card (``--device cpu`` for
+the CPU).  Two modes:
+
+* ``--arch saocds-amc`` — the paper's SNN classifier end to end: Σ-Δ
+  encoded synthetic RadioML, surrogate-gradient BPTT, optional pruning
+  (``--density``) and 16-bit LSQ (``--lsq``).  On the card each step
+  replays the trainer's CUDA graph without waiting for it.
+* ``--arch <assigned-lm-id>`` — any of the 10 assigned architectures at
+  its ``--scale reduced`` or ``--scale full`` config (:class:`LMTrainer`),
+  on the synthetic Zipf token stream, with AdamW + clipping.  Its steps
+  run op by op (eagerly).
+
+Both checkpoint every ``--ckpt-every`` steps (atomic, keep-N, the
+reference's on-disk format), resume with ``--resume``, and flag steps
+above 3x the trailing median as stragglers.  The median step time printed
+is the host's, step to step.
 """
 from __future__ import annotations
 
 import argparse
 import statistics
 import sys
+import time
+from typing import Optional
 
-__all__ = ["main"]
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ARCH_IDS, get_config, reduced_config
+from repro_torch.data.pipeline import lm_token_batches
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import init_lm, lm_loss
+from repro_torch.models.whisper import init_whisper, whisper_loss
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.optimizer import adamw, apply_updates, clip_by_global_norm
+from repro_torch.tree import tree_leaves, tree_unflatten
+
+__all__ = ["LMTrainer", "main"]
+
+
+class LMTrainer:
+    """Synthetic-stream LM trainer for the assigned architectures, on
+    ``device`` (the card unless ``"cpu"``).
+
+    The params are drawn on the CPU from ``torch.Generator().manual_seed(
+    seed)``, so one seed gives the same params on every device.  Each step
+    is the reference's: the loss and its gradients (``torch.autograd``),
+    ``clip_by_global_norm(1.0)``, AdamW with ``weight_decay=0.01``.
+    ``params`` and ``opt_state`` are plain attributes; assigning them (for
+    example the reference's params through
+    :func:`repro_torch.convert.lm_params_from_numpy`, with
+    ``opt_state = opt_init(params)``) changes what the next step starts
+    from.
+    """
+
+    def __init__(self, cfg: ArchConfig, *, lr: float = 3e-4, seed: int = 0,
+                 batch: int = 8, seq: int = 64,
+                 ckpt_dir: Optional[str] = None, keep: int = 3, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.batch, self.seq = batch, seq
+        gen = torch.Generator().manual_seed(seed)
+        if cfg.family == "encdec":
+            self.params = init_whisper(gen, cfg, max_dec_pos=max(seq, 128),
+                                       device=self.device)
+        else:
+            self.params = init_lm(gen, cfg, device=self.device)
+        self.opt_init, self.opt_update = adamw(lr, weight_decay=0.01)
+        self.opt_state = self.opt_init(self.params)
+        self.step = 0
+        self.step_times: list = []
+        self.stragglers: list = []
+        self.ckpt = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+
+    def loss(self, params, tokens, labels, extra) -> torch.Tensor:
+        if self.cfg.family == "encdec":
+            return whisper_loss(params, extra, tokens, labels, self.cfg)
+        return lm_loss(params, tokens, labels, self.cfg, patch_embeds=extra)
+
+    def train_step(self, tokens, labels, extra):
+        """One step from ``self.params`` / ``self.opt_state``; returns the
+        loss and the gradients' global norm before clipping."""
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(self.params)]
+        loss = self.loss(tree_unflatten(self.params, leaves), tokens, labels,
+                         extra)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = tree_unflatten(self.params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+            updates, self.opt_state = self.opt_update(grads, self.opt_state,
+                                                      self.params)
+            self.params = apply_updates(self.params, updates)
+        return loss.detach(), gnorm
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the trainer's device.  To the card it goes from
+        pinned memory without a wait: a copy from pageable memory would
+        synchronise the host with the card at every step."""
+        t = torch.from_numpy(x)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def extra(self, rng: np.random.Generator):
+        """The step's stub frontend input, drawn as the reference draws it:
+        VLM patch embeddings (bf16), whisper frame embeddings (f32)."""
+        if self.cfg.family == "vlm":
+            x = rng.normal(size=(self.batch, self.cfg.n_patches,
+                                 self.cfg.d_model)).astype(np.float32) * 0.02
+            return self._to_device(x).to(torch.bfloat16)
+        if self.cfg.family == "encdec":
+            x = rng.normal(size=(self.batch, self.seq, self.cfg.d_model)
+                           ).astype(np.float32) * 0.02
+            return self._to_device(x)
+        return None
+
+    def run(self, steps: int, log_every: int = 20,
+            ckpt_every: int = 0) -> dict:
+        history = {"step": [], "loss": []}
+        gen = lm_token_batches(self.batch, self.seq, self.cfg.vocab,
+                               seed=self.step + 1)
+        rng = np.random.default_rng(17 + self.step)
+        end = self.step + steps
+        while self.step < end:
+            t0 = time.perf_counter()
+            tokens, labels = next(gen)
+            loss, gnorm = self.train_step(self._to_device(tokens),
+                                          self._to_device(labels),
+                                          self.extra(rng))
+            self.step += 1
+            dt = time.perf_counter() - t0
+            self.step_times.append(dt)
+            if len(self.step_times) >= 10:
+                med = float(np.median(self.step_times[-50:]))
+                if dt > 3.0 * med:
+                    self.stragglers.append(self.step)
+            if self.step % log_every == 0 or self.step == end:
+                history["step"].append(self.step)
+                history["loss"].append(float(loss))
+                print(f"step {self.step:5d} loss {float(loss):.4f} "
+                      f"gnorm {float(gnorm):.3f} {dt * 1e3:.0f} ms")
+            if self.ckpt and ckpt_every and self.step % ckpt_every == 0:
+                self.save()
+        if self.ckpt:
+            self.save()
+            self.ckpt.wait()
+        return history
+
+    # -- fault tolerance ----------------------------------------------------
+
+    def _state_tree(self):
+        return {"params": self.params, "opt": self.opt_state}
+
+    def save(self):
+        if self.ckpt:
+            self.ckpt.save(self.step, self._state_tree(),
+                           extra={"step": self.step})
+
+    def resume(self) -> bool:
+        if not self.ckpt or self.ckpt.latest_step() is None:
+            return False
+        tree, manifest = self.ckpt.restore(self._state_tree())
+        self.params = tree["params"]
+        self.opt_state = tree["opt"]
+        self.step = int(manifest["extra"]["step"])
+        return True
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    choices=list(ARCH_IDS) + ["saocds-amc"])
+    ap.add_argument("--scale", default="reduced", choices=["reduced", "full"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--density", type=float, default=None,
-                    help="target weight density (pruning)")
+                    help="saocds-amc: target weight density (pruning)")
     ap.add_argument("--lsq", action="store_true",
-                    help="16-bit LSQ quantization-aware training")
+                    help="saocds-amc: 16-bit LSQ quantization-aware training")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' to run the "
                          "plain versions on the CPU)")
     args = ap.parse_args(argv)
 
-    if args.arch != "saocds-amc":
-        print(f"--arch {args.arch!r}: only saocds-amc trains in the port; the "
-              "language-model zoo is not ported yet (ROADMAP Queue 1, the "
-              "model zoo)", file=sys.stderr)
-        return 2
+    if args.arch == "saocds-amc":
+        from repro_torch.configs.saocds_amc import CONFIG
+        from repro_torch.train.trainer import SNNTrainer, TrainerConfig
 
-    from repro_torch.configs.saocds_amc import CONFIG
-    from repro_torch.train.trainer import SNNTrainer, TrainerConfig
+        tcfg = TrainerConfig(
+            total_steps=args.steps, batch_size=args.batch, lr=args.lr,
+            final_density=args.density, use_lsq=args.lsq,
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        )
+        trainer = SNNTrainer(CONFIG, tcfg, device=args.device)
+        if args.resume and trainer.resume():
+            print(f"resumed at step {trainer.step}")
+        hist = trainer.run()
+        acc = trainer.evaluate(snr_db=10.0)
+        step_ms = statistics.median(trainer.step_times) * 1e3
+        print(f"final loss {hist['loss'][-1]:.4f}  acc@10dB {acc:.3f}  "
+              f"step {step_ms:.3f} ms (median, host to host)  "
+              f"stragglers {len(trainer.stragglers)}")
+        return 0
 
-    tcfg = TrainerConfig(
-        total_steps=args.steps, batch_size=args.batch, lr=args.lr,
-        final_density=args.density, use_lsq=args.lsq,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-    )
-    trainer = SNNTrainer(CONFIG, tcfg, device=args.device)
+    cfg = get_config(args.arch) if args.scale == "full" else reduced_config(args.arch)
+    trainer = LMTrainer(cfg, lr=args.lr, batch=args.batch, seq=args.seq,
+                        ckpt_dir=args.ckpt_dir, device=args.device)
     if args.resume and trainer.resume():
         print(f"resumed at step {trainer.step}")
-    hist = trainer.run()
-    acc = trainer.evaluate(snr_db=10.0)
+    hist = trainer.run(args.steps, ckpt_every=args.ckpt_every)
     step_ms = statistics.median(trainer.step_times) * 1e3
-    print(f"final loss {hist['loss'][-1]:.4f}  acc@10dB {acc:.3f}  "
-          f"step {step_ms:.3f} ms (median, host to host)  "
-          f"stragglers {len(trainer.stragglers)}")
+    print(f"final loss {hist['loss'][-1]:.4f}  step {step_ms:.3f} ms "
+          f"(median, host to host)  stragglers {len(trainer.stragglers)}")
     return 0
 
 

@@ -1,1 +1,3 @@
-"""The paper's SNN and its layer graph with pluggable backends."""
+"""Model zoo: the paper's SNN classifier (:mod:`.snn`, :mod:`.graph`) and
+the 10 assigned language-model architectures (:mod:`.config`,
+:mod:`.layers`, :mod:`.lm`, :mod:`.whisper`)."""

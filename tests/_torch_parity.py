@@ -127,3 +127,24 @@ def port_leaves(tree):
     from repro_torch.tree import tree_leaves
 
     return [x.detach().cpu().numpy() for x in tree_leaves(tree)]
+
+
+def leaf_names(tree, prefix=""):
+    """'/'-joined paths of a nested dict/list tree's leaves, in
+    ``jax.tree_util`` order (sorted dict keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree) for n in leaf_names(x, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def exact_zero_grad(cfg, name: str) -> bool:
+    """Language-model leaves whose gradient is zero in exact arithmetic,
+    where both packages give rounding noise: a k-projection bias without
+    rope adds q . b_k to every score of a query row, to which the row's
+    softmax is invariant (whisper), and a top-1 router's weight
+    p / (p + 1e-9) is 1 to f32 precision (llama4-scout)."""
+    leaf = name.rsplit("/", 1)[-1]
+    return ((leaf == "bk" and (not cfg.rope_enabled or "/cross/" in name))
+            or (leaf == "router" and cfg.top_k == 1))

@@ -22,10 +22,10 @@ REF_EXPORTS = sorted([SRC / "repro" / "api.py"]
                         if "__all__" in p.read_text()])
 
 # exporting reference module -> the names it exports whose defining
-# modules are not ported yet (ROADMAP Queue 1: distributed/, item 7)
+# modules are not ported yet (ROADMAP Queue 1 item 8: the sharding rule
+# table of distributed/sharding.py)
 WAITING = {
     "repro.distributed": [
-        "activation_constraints", "constrain_acts", "constrain_logits",
         "act_pspec", "decode_state_specs", "dp_axes", "logits_pspec",
         "named_tree", "partition_params", "train_batch_spec"],
 }

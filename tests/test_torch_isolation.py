@@ -47,7 +47,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 # tier, the channel scenarios, the robustness evaluation, the model
 # lifecycle, the fleet, the obs analysis plane, the served step's capture,
 # the serving CLI, the trainer's captured step, the SNN's distributed
-# pieces and the examples, each imported alone in a fresh interpreter
+# pieces, the examples and the language-model zoo, each imported alone in
+# a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
           "repro_torch.train.lsq", "repro_torch.data.radioml",
@@ -77,7 +78,12 @@ _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.distributed.compression", "repro_torch.examples",
           "repro_torch.examples.quickstart", "repro_torch.examples.amc_train",
           "repro_torch.examples.amc_serve", "repro_torch.examples.amc_deploy",
-          "repro_torch.examples.snn_pipeline"]
+          "repro_torch.examples.snn_pipeline",
+          "repro_torch.models.config", "repro_torch.models.layers",
+          "repro_torch.models.lm", "repro_torch.models.whisper",
+          "repro_torch.configs", "repro_torch.configs.registry",
+          "repro_torch.distributed.ctx", "repro_torch.convert",
+          "repro_torch.examples.lm_pretrain"]
 
 
 @pytest.mark.parametrize("module", _ALONE)
