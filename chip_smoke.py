@@ -171,8 +171,27 @@ file; exits non-zero without them.  In order, it
     prefill/decode gate holds at full width.  mamba2-780m at full width:
     ``lm_forward`` at batch 2 x seq 256, timed, and the same gate.  Prints
     ``zoo_phase`` with every number beside the card's name and power
+    limit.  Its full-width trainer and generation run op by op
+    (``capture=False``): the eager baseline of the cells phase;
+22. runs the zoo's production cells (``cells_phase``, with the launch
+    counts set to 0 just before it and read just after: it must launch
+    none of the four kernels), each step captured in a CUDA graph and
+    held bit for bit to the same step op by op: the qwen1.5-0.5b train
+    cell (``train_4k``'s seq 4096, global batch cut to 4, a 1-card mesh;
+    3 steps: loss, gradient norm, params and moments), the mamba2-780m
+    ``long_500k`` decode cell at its published shape (16 steps: logits
+    and state), the qwen1.5-0.5b ``prefill_32k`` cell at batch 1 (logits
+    and state; seq cut to 8,192 if its capture took over 30 s); then
+    ``LMTrainer`` at the zoo phase's size captured, op by op, and captured
+    without recomputation, and ``Generator`` captured against op by op
+    (tokens equal); the dry-runs ``run_cell("mamba2-780m", "long_500k",
+    "multi")``, ``run_cell("qwen1.5-0.5b", "train_4k", "single")`` and
+    ``pp_dryrun.run()`` in process; ``streaming_roofline(SNNConfig(),
+    batch=64)``'s target beside the fused kernel's frames/s.  Prints
+    ``cells_phase`` with step ms captured and eager, idle shares, peak
+    memory, counted TFLOP/s, tokens/s, beside the card's name and power
     limit;
-22. prints the whole run's seconds, one JSON line of per-kernel results,
+23. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
@@ -537,7 +556,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-21 on ``device``; returns the kernels JSON object."""
+    """Phases 3-22 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -671,6 +690,10 @@ def run(device, timers: Timers, seed: int = SEED):
     run_examples_phase(device)
     print("phase: zoo")
     paths["zoo"] = run_zoo_phase(device, seed)["launches"]
+    print("phase: cells")
+    fused_ms = next(row["ms"] for row in rows
+                    if row["name"] == "stream_fused_forward")
+    paths["cells"] = run_cells_phase(device, fused_ms, seed)["launches"]
     for row in result["kernels"]:
         for path, counts in paths.items():
             row["launches_by_path"][path] = counts[row["name"]]
@@ -2374,7 +2397,8 @@ def run_zoo_phase(device, seed: int = SEED) -> dict:
     # a trainer of that size: step time, busy share, peak memory
     cfg = get_config("qwen1.5-0.5b")
     torch.cuda.reset_peak_memory_stats(device)
-    trainer = LMTrainer(cfg, batch=4, seq=256, seed=seed, device=device)
+    trainer = LMTrainer(cfg, batch=4, seq=256, seed=seed, device=device,
+                        capture=False)
     timing, _ = _quiet(step_ms, trainer, FULL_TIMED_STEPS)
     prof, _ = _quiet(profile_steps, lambda: trainer.run(1, log_every=1), 2)
     peak = torch.cuda.max_memory_allocated(device)
@@ -2402,10 +2426,10 @@ def run_zoo_phase(device, seed: int = SEED) -> dict:
     rng = np.random.default_rng(seed)
     prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)
                                             ).astype(np.int32)).to(device)
-    generate(cfg, trainer.params, prompts, 1)                   # warm
+    generate(cfg, trainer.params, prompts, 1, capture=False)    # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    tokens = generate(cfg, trainer.params, prompts, GEN_NEW)
+    tokens = generate(cfg, trainer.params, prompts, GEN_NEW, capture=False)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     ok_tokens = (tuple(tokens.shape) == (GEN_BATCH, GEN_PROMPT + GEN_NEW)
@@ -2455,6 +2479,351 @@ def run_zoo_phase(device, seed: int = SEED) -> dict:
     if failures:
         raise AssertionError(f"zoo phase gates failed: {failures}")
     expect_launches(counts, set(), "zoo path")
+    return line
+
+
+# the cells phase: the train cell's cut global batch and its gate steps,
+# the decode cell's steps, the prefill cell's cut batch and the capture
+# time above which its sequence is cut
+CELL_TRAIN_BATCH = 4
+CELL_GATE_STEPS = 3
+CELL_DECODE_STEPS = 16
+CELL_PREFILL_BATCH = 1
+CELL_PREFILL_CAPTURE_S = 30.0
+CELL_PREFILL_CUT_SEQ = 8192
+
+
+def _state_equal(got, want) -> bool:
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    got, want = tree_leaves(got), tree_leaves(want)
+    return len(got) == len(want) and all(
+        g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _waited_ms(fn, reps: int) -> list:
+    import torch
+
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _cell_train(device, seed, mesh):
+    """The qwen1.5-0.5b train cell at seq 4096, batch 4: CELL_GATE_STEPS
+    steps op by op, then as many captured, from one state, each waited
+    for (the last two give the waited step ms; the first captured one
+    captures); then one captured step profiled.  Returns (line,
+    {captured: (state after the gate steps, metrics)})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("qwen1.5-0.5b")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=CELL_TRAIN_BATCH)
+    plan = steps._train_cell("qwen1.5-0.5b", shape, cfg, mesh)
+    params = init_lm(torch.Generator(device=device).manual_seed(seed), cfg)
+    state0 = {"params": params,
+              "opt": adamw(3e-4, weight_decay=0.1)[0](params)}
+    rng = np.random.default_rng(seed)
+    batch = {k: rng.integers(0, cfg.vocab, (shape.global_batch, shape.seq_len)
+                             ).astype(np.int32) for k in ("tokens", "labels")}
+    runs, line = {}, {"arch": "qwen1.5-0.5b", "seq": shape.seq_len,
+                      "global_batch": shape.global_batch}
+    for capture in (False, True):
+        name = "captured" if capture else "eager"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        step = plan.jitted(device, capture=capture)
+        st, metrics, waited = state0, [], []   # the first call copies state0 in
+        for _ in range(CELL_GATE_STEPS):
+            t0 = time.perf_counter()
+            st, m = step(st, batch)
+            metrics.append((m["loss"].clone(), m["gnorm"].clone()))
+            torch.cuda.synchronize()
+            waited.append((time.perf_counter() - t0) * 1e3)
+        line[f"{name}_step_ms_waited"] = statistics.median(waited[1:])
+        line[f"{name}_step_ms_all"] = waited
+        # later steps rewrite the donated buffers: keep the gate's state
+        runs[capture] = (tree_map(torch.clone, st), metrics)
+        if capture:
+            prof, _ = _quiet(profile_steps, lambda: step(st, batch), 1)
+            busy = prof["device_busy_ms"]
+            line.update(prof)
+            # the card's idle share of the profiled step's own window
+            line["device_idle_share"] = (
+                1.0 - busy / prof["profiled_step_ms"] if busy else None)
+            line["captures"] = step.static.captures
+        line[f"{name}_peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+        del step, st, m
+    cap_m, eag_m = runs[True][1], runs[False][1]
+    line["losses"] = [float(l) for l, _ in cap_m]
+    line["gnorms"] = [float(g) for _, g in cap_m]
+    line["bit_equal"] = bool(all(torch.equal(a, b) and torch.equal(c, d)
+                                 for (a, c), (b, d) in zip(cap_m, eag_m)))
+    return line, runs
+
+
+def run_cells_phase(device, fused_ms: float, seed: int = SEED) -> dict:
+    """Phase 22: the zoo's production cells on the card (see the module
+    docstring).  ``fused_ms`` is the fused kernel's device ms at batch 64
+    from the kernels phase.  Returns the phase's line, with the launch
+    counts."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import dryrun, pp_dryrun, steps
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.roofline import streaming_roofline
+    from repro_torch.launch.serve import Generator
+    from repro_torch.launch.train import LMTrainer
+    from repro_torch.models import lm as lm_module
+    from repro_torch.models.lm import init_decode_state, init_lm
+    from repro_torch.models.snn import SNNConfig
+    from repro_torch.tree import tree_map
+
+    card = nvidia_smi()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+    mesh = Mesh((1, 1), ("data", "model"))
+    line = {"card": card}
+    failures = []
+
+    # -- the dry-runs first: the train cell's FLOPs come from one of them
+    t0 = time.perf_counter()
+    recs = {"long_500k_multi": dryrun.run_cell("mamba2-780m", "long_500k", "multi"),
+            "train_4k_single": dryrun.run_cell("qwen1.5-0.5b", "train_4k", "single")}
+    pp = pp_dryrun.run()
+    line["dryrun"] = {k: {"arch": r["arch"], "chips": r["chips"],
+                          "terms_s": r["roofline"]["terms_s"],
+                          "bottleneck": r["roofline"]["bottleneck"],
+                          "useful_ratio": r["roofline"]["useful_ratio"],
+                          "peak_live_bytes": r["memory"]["peak_live_bytes"],
+                          "fits_80g_hbm": r["memory"]["fits_80g_hbm"]}
+                      for k, r in recs.items()}
+    line["pp_dryrun"] = {k: pp[k] for k in ("ticks", "bubble_fraction",
+                                            "terms_s", "stage_calls")}
+    line["dryrun_s"] = time.perf_counter() - t0
+    if not (all(r["ok"] for r in recs.values()) and pp["ok"]
+            and recs["long_500k_multi"]["chips"] == 512 and pp["ticks"] == 23):
+        failures.append(("dry-runs", line["dryrun"]))
+
+    # -- the train cell
+    t0 = time.perf_counter()
+    train, runs = _cell_train(device, seed, mesh)
+    (cap_st, _), (eag_st, _) = runs[True], runs[False]
+    train["state_bit_equal"] = _state_equal(cap_st, eag_st)
+    # its counted FLOPs: the train_4k dry-run's global count at batch 256,
+    # linear in the batch (qwen1.5-0.5b takes one microbatch at both)
+    rec = recs["train_4k_single"]
+    flops = (rec["roofline"]["global"]["dot_flops"] * CELL_TRAIN_BATCH
+             / SHAPES["train_4k"].global_batch)
+    train["counted_flops"] = flops
+    for name in ("captured", "eager"):
+        tflops = flops / (train[f"{name}_step_ms_waited"] / 1e3) / 1e12
+        train[f"{name}_tflop_per_s"] = tflops
+        train[f"{name}_share_of_bf16_peak"] = tflops * 1e12 / HW["peak_flops_bf16"]
+    train["seconds"] = time.perf_counter() - t0
+    train["card"] = card
+    line["train_cell"] = train
+    if not (train["bit_equal"] and train["state_bit_equal"]
+            and all(math.isfinite(x) for x in train["losses"])):
+        failures.append(("train cell", train))
+    del runs, cap_st, eag_st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the decode cell at its published shape
+    t0 = time.perf_counter()
+    cfg = get_config("mamba2-780m")
+    shape = SHAPES["long_500k"]
+    plan = steps._decode_cell("mamba2-780m", shape, cfg, mesh)
+    params = init_lm(torch.Generator(device=device).manual_seed(seed), cfg,
+                     dtype=torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (CELL_DECODE_STEPS, shape.global_batch, 1)
+    ).astype(np.int32)).to(device)
+    decode = {"arch": "mamba2-780m", "ctx": shape.seq_len,
+              "batch": shape.global_batch, "steps": CELL_DECODE_STEPS}
+    outs = {}
+    for capture in (False, True):
+        step = plan.jitted(device, capture=capture)
+        state0 = init_decode_state(cfg, shape.global_batch, shape.seq_len,
+                                   device=device)
+        st, logits = state0, []
+        for i in range(CELL_DECODE_STEPS):          # the gate run (captures)
+            lg, st = step(params, st, toks[i])
+            logits.append(lg.clone())
+        outs[capture] = (logits, tree_map(torch.clone, st))
+        name = "captured" if capture else "eager"
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(CELL_DECODE_STEPS):          # timed: one wait at the end
+            lg, st = step(params, st, toks[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        decode[f"{name}_tokens_per_s"] = CELL_DECODE_STEPS * shape.global_batch / dt
+        decode[f"{name}_step_ms"] = dt * 1e3 / CELL_DECODE_STEPS
+    decode["bit_equal"] = (
+        all(torch.equal(a, b) for a, b in zip(outs[True][0], outs[False][0]))
+        and _state_equal(outs[True][1], outs[False][1]))
+    decode["finite"] = bool(torch.isfinite(outs[True][0][-1][..., :cfg.vocab]).all())
+    decode["seconds"] = time.perf_counter() - t0
+    decode["card"] = card
+    line["decode_cell"] = decode
+    if not (decode["bit_equal"] and decode["finite"]):
+        failures.append(("decode cell", decode))
+    del params, outs, st, lg, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the prefill cell, batch 1 (seq cut if its capture is too slow)
+    cfg = get_config("qwen1.5-0.5b")
+    params = init_lm(torch.Generator(device=device).manual_seed(seed), cfg,
+                     dtype=torch.bfloat16)
+    prefill = {"arch": "qwen1.5-0.5b", "batch": CELL_PREFILL_BATCH}
+    for seq in (SHAPES["prefill_32k"].seq_len, CELL_PREFILL_CUT_SEQ):
+        t0 = time.perf_counter()
+        shape = dataclasses.replace(SHAPES["prefill_32k"],
+                                    global_batch=CELL_PREFILL_BATCH, seq_len=seq)
+        plan = steps._prefill_cell("qwen1.5-0.5b", shape, cfg, mesh)
+        prefill["build_s"] = time.perf_counter() - t0
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab, (shape.global_batch, seq)).astype(np.int32)).to(device)}
+        res = {}
+        for capture in (False, True):
+            step = plan.jitted(device, capture=capture)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, state = step(params, batch)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t1
+            res[capture] = tree_map(torch.clone, (logits, state))
+            name = "captured" if capture else "eager"
+            # the eager first call builds nothing: it is the eager time;
+            # the captured one warms up, captures and replays
+            prefill[f"{name}_first_call_s"] = first
+            prefill[f"{name}_ms_waited"] = (
+                _waited_ms(lambda: step(params, batch), 1)[0] if capture
+                else first * 1e3)
+            del step, logits, state
+        prefill["seq"] = seq
+        prefill["bit_equal"] = _state_equal(res[True], res[False])
+        prefill["finite"] = bool(torch.isfinite(res[True][0][..., :cfg.vocab]).all())
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        if prefill["captured_first_call_s"] <= CELL_PREFILL_CAPTURE_S:
+            break
+        prefill["cut_from"] = SHAPES["prefill_32k"].seq_len
+    prefill["card"] = card
+    line["prefill_cell"] = prefill
+    if not (prefill["bit_equal"] and prefill["finite"]):
+        failures.append(("prefill cell", prefill))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- LMTrainer at the zoo phase's size: captured, op by op, captured without
+    # recomputation (a measurement, not a mode of the port)
+    t0 = time.perf_counter()
+    trainer_line = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 256}
+    cfg = get_config("qwen1.5-0.5b")
+    for name, capture, remat in (("captured", True, True), ("eager", False, True),
+                                 ("captured_no_recompute", True, False)):
+        saved = lm_module.remat
+        if not remat:
+            lm_module.remat = lambda fn, *args: fn(*args)
+        try:
+            torch.cuda.reset_peak_memory_stats(device)
+            trainer = LMTrainer(cfg, batch=4, seq=256, seed=seed, device=device,
+                                capture=capture)
+            timing, _ = _quiet(step_ms, trainer, FULL_TIMED_STEPS)
+            prof, _ = _quiet(profile_steps, lambda: trainer.run(1, log_every=1), 2)
+        finally:
+            lm_module.remat = saved
+        busy = prof["device_busy_ms"]
+        trainer_line[name] = {
+            **timing, **prof,
+            "device_idle_share": (1.0 - busy / timing["step_ms_waited"])
+            if busy else None,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+        if name == "captured":
+            params = tree_map(torch.clone, trainer.params)   # for generation
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    cap = trainer_line["captured"]["step_ms_waited"]
+    trainer_line["recompute_share_of_captured_step"] = (
+        1.0 - trainer_line["captured_no_recompute"]["step_ms_waited"] / cap)
+    trainer_line["seconds"] = time.perf_counter() - t0
+    trainer_line["card"] = card
+    line["lm_trainer"] = trainer_line
+
+    # -- generation on the captured trainer's params: captured vs op by op
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (GEN_BATCH, GEN_PROMPT)
+                                            ).astype(np.int32)).to(device)
+    gen_line = {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new_tokens": GEN_NEW}
+    tokens = {}
+    for name, capture in (("captured", True), ("eager", False)):
+        gen = Generator(cfg, params, capture=capture)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gen(prompts, GEN_NEW)                      # the first call captures
+        torch.cuda.synchronize()
+        gen_line[f"{name}_first_call_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tokens[name] = gen(prompts, GEN_NEW)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        gen_line[f"{name}_tokens_per_s"] = GEN_BATCH * GEN_NEW / dt
+    gen_line["tokens_equal"] = bool(torch.equal(tokens["captured"], tokens["eager"]))
+    gen_line["card"] = card
+    line["generate"] = gen_line
+    if not gen_line["tokens_equal"]:
+        failures.append(("generate", gen_line))
+    del params, gen, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the SNN's streaming roofline target beside the fused kernel
+    target = streaming_roofline(SNNConfig(), batch=64)
+    line["streaming_roofline"] = {
+        "target_fps": target["target_fps"], "bound": target["bound"],
+        "fused_kernel_fps_batch64": 64 / (fused_ms / 1e3),
+        "fused_share_of_target": 64 / (fused_ms / 1e3) / target["target_fps"],
+        "note": "HW quotes the bf16 tensor-core peak; the fused kernel "
+                "runs f32 on the CUDA cores", "card": card}
+
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    line["launches"] = counts
+    line["seconds"] = time.perf_counter() - t_phase
+    print(f"cells_phase {json.dumps(line)}")
+    if failures:
+        raise AssertionError(f"cells phase gates failed: {failures}")
+    expect_launches(counts, set(), "cells path")
     return line
 
 

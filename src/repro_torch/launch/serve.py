@@ -14,8 +14,9 @@ reference's (``repro/launch/serve.py``), plus ``--device``.
 
 ``--arch <assigned-lm-id>`` runs batched greedy generation on the reduced
 config (:func:`generate`: one prefill that builds the decode state, then
-``--new-tokens`` decode steps, eagerly), reporting tokens/s; the
-encoder-decoder ``whisper-large-v3`` returns 1, as in the reference.
+``--new-tokens`` decode steps; on the card each is a CUDA-graph replay),
+reporting tokens/s; the encoder-decoder ``whisper-large-v3`` returns 1, as
+in the reference.
 
 Examples::
 
@@ -37,50 +38,94 @@ import json
 import sys
 import threading
 import time
+from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.registry import ARCH_IDS
 
-__all__ = ["generate", "main"]
+__all__ = ["Generator", "generate", "main"]
 
 
-def generate(cfg, params, prompts, n_new: int):
-    """Greedy decode: prompts (B, S) -> (B, S + n_new) int32 tokens, on the
-    prompts' device.  One prefill with room for ``n_new`` tokens in its
-    caches, then ``n_new`` decode steps; ties go to the lowest token id,
-    as ``jnp.argmax`` gives them."""
-    import torch
+class Generator:
+    """Greedy decode on fixed ``params``: the port of the reference's
+    jitted prefill and decode step (``repro/launch/serve.py``).
 
-    from repro_torch.models.lm import lm_decode_step, lm_prefill
+    Both run through :func:`repro_torch.train.capture.static_jit` on the
+    prompts' device: on the card each is a CUDA graph, captured at its
+    shapes' first call and replayed (``capture=False`` runs the same
+    buffers op by op, as the CPU always does).  The decode step donates
+    its state and its token: the graph writes the next state and the
+    greedy token back into its own buffers, so a step copies nothing in
+    and waits for nothing.  The graphs read ``params`` in place, so they
+    must not be reassigned; a ``Generator`` is reused across calls of the
+    same shapes.
+    """
 
-    b = prompts.shape[0]
-    patch = None
-    if cfg.family == "vlm":
-        patch = torch.zeros((b, cfg.n_patches, cfg.d_model),
-                            dtype=torch.bfloat16, device=prompts.device)
+    def __init__(self, cfg, params, capture: Optional[bool] = None):
+        self.cfg, self.params, self.capture = cfg, params, capture
+        self._prefill: Dict[int, Callable] = {}     # n_new -> step
+        self._decode: Optional[Callable] = None
 
-    def greedy(logits):
-        return torch.argmax(logits[:, -1, : cfg.vocab], dim=-1
+    def _greedy(self, logits):
+        return torch.argmax(logits[:, -1, : self.cfg.vocab], dim=-1
                             ).to(torch.int32)[:, None]
 
-    with torch.no_grad():
-        logits, states = lm_prefill(params, prompts, cfg, patch_embeds=patch,
-                                    cache_headroom=n_new)
-        out = [prompts.to(torch.int32)]
-        token = greedy(logits)
-        for _ in range(n_new):
-            out.append(token)
+    def _steps(self, device, n_new: int):
+        from repro_torch.models.lm import lm_decode_step, lm_prefill
+        from repro_torch.train.capture import static_jit
+
+        cfg, params = self.cfg, self.params
+
+        def prefill(prompts):
+            patch = None
+            if cfg.family == "vlm":
+                patch = torch.zeros((prompts.shape[0], cfg.n_patches,
+                                     cfg.d_model), dtype=torch.bfloat16,
+                                    device=prompts.device)
+            logits, states = lm_prefill(params, prompts, cfg,
+                                        patch_embeds=patch,
+                                        cache_headroom=n_new)
+            return self._greedy(logits), states
+
+        def decode(states, token):
             logits, states = lm_decode_step(params, states, token, cfg)
-            token = greedy(logits)
-    return torch.cat(out, dim=1)
+            return states, self._greedy(logits)
+
+        if n_new not in self._prefill:
+            self._prefill[n_new] = static_jit(prefill, device,
+                                              capture=self.capture)
+        if self._decode is None:
+            self._decode = static_jit(decode, device, donate_argnums=(0, 1),
+                                      capture=self.capture)
+        return self._prefill[n_new], self._decode
+
+    def __call__(self, prompts, n_new: int):
+        """prompts (B, S) -> (B, S + n_new) int32 tokens, on the prompts'
+        device; ties go to the lowest token id, as ``jnp.argmax`` gives
+        them."""
+        prefill, decode = self._steps(prompts.device, n_new)
+        with torch.no_grad():
+            token, states = prefill(prompts)
+            out = [prompts.to(torch.int32)]
+            for _ in range(n_new):
+                out.append(token.clone())
+                states, token = decode(states, token)
+            return torch.cat(out, dim=1)
+
+
+def generate(cfg, params, prompts, n_new: int, capture: Optional[bool] = None):
+    """Greedy decode: prompts (B, S) -> (B, S + n_new) int32 tokens, on the
+    prompts' device.  One prefill with room for ``n_new`` tokens in its
+    caches, then ``n_new`` decode steps (see :class:`Generator`, which
+    keeps its graphs for the next call)."""
+    return Generator(cfg, params, capture=capture)(prompts, n_new)
 
 
 def _serve_lm(args) -> int:
     """The reference's LM branch: greedy generation on the reduced config
     with params from seed 0, prompts from ``np.random.default_rng(0)``."""
-    import torch
-
     from repro_torch.configs.registry import reduced_config
     from repro_torch.device import resolve_device
     from repro_torch.models.lm import init_lm
@@ -101,7 +146,7 @@ def _serve_lm(args) -> int:
     dt = time.perf_counter() - t0
     n_gen = args.batch * args.new_tokens
     print(f"generated {tuple(tokens.shape)} in {dt:.2f}s "
-          f"({n_gen / dt:.1f} tok/s, eager)")
+          f"({n_gen / dt:.1f} tok/s)")
     return 0
 
 

@@ -9,8 +9,8 @@ the CPU).  Two modes:
   replays the trainer's CUDA graph without waiting for it.
 * ``--arch <assigned-lm-id>`` — any of the 10 assigned architectures at
   its ``--scale reduced`` or ``--scale full`` config (:class:`LMTrainer`),
-  on the synthetic Zipf token stream, with AdamW + clipping.  Its steps
-  run op by op (eagerly).
+  on the synthetic Zipf token stream, with AdamW + clipping.  On the card
+  each step replays the trainer's CUDA graph too.
 
 Both checkpoint every ``--ckpt-every`` steps (atomic, keep-N, the
 reference's on-disk format), resume with ``--resume``, and flag steps
@@ -34,6 +34,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import init_lm, lm_loss
 from repro_torch.models.whisper import init_whisper, whisper_loss
+from repro_torch.train.capture import static_jit
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.optimizer import adamw, apply_updates, clip_by_global_norm
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -49,54 +50,86 @@ class LMTrainer:
     seed)``, so one seed gives the same params on every device.  Each step
     is the reference's: the loss and its gradients (``torch.autograd``),
     ``clip_by_global_norm(1.0)``, AdamW with ``weight_decay=0.01``.
-    ``params`` and ``opt_state`` are plain attributes; assigning them (for
-    example the reference's params through
-    :func:`repro_torch.convert.lm_params_from_numpy`, with
-    ``opt_state = opt_init(params)``) changes what the next step starts
-    from.
+
+    The step is the port of the reference's ``jax.jit(train_step)``
+    (:func:`repro_torch.train.capture.static_jit`, the state donated): on
+    the card it replays one CUDA graph per batch shape (``capture=False``
+    runs the same buffers op by op, as the CPU always does).  ``params``
+    and ``opt_state`` are the step's state buffers after the first step,
+    rewritten in place by every later step (clone them to keep a copy);
+    assigning either (for example the reference's params through
+    :func:`repro_torch.convert.lm_params_from_numpy`, with ``opt_state =
+    opt_init(params)``) changes what the next step starts from.
     """
 
     def __init__(self, cfg: ArchConfig, *, lr: float = 3e-4, seed: int = 0,
                  batch: int = 8, seq: int = 64,
-                 ckpt_dir: Optional[str] = None, keep: int = 3, device=None):
+                 ckpt_dir: Optional[str] = None, keep: int = 3, device=None,
+                 capture: Optional[bool] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.batch, self.seq = batch, seq
         gen = torch.Generator().manual_seed(seed)
         if cfg.family == "encdec":
-            self.params = init_whisper(gen, cfg, max_dec_pos=max(seq, 128),
-                                       device=self.device)
+            params = init_whisper(gen, cfg, max_dec_pos=max(seq, 128),
+                                  device=self.device)
         else:
-            self.params = init_lm(gen, cfg, device=self.device)
+            params = init_lm(gen, cfg, device=self.device)
         self.opt_init, self.opt_update = adamw(lr, weight_decay=0.01)
-        self.opt_state = self.opt_init(self.params)
+        self.state = {"params": params, "opt": self.opt_init(params)}
+        self._step = static_jit(self._train_step, self.device,
+                                donate_argnums=(0,), capture=capture)
         self.step = 0
         self.step_times: list = []
         self.stragglers: list = []
         self.ckpt = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+
+    @property
+    def params(self):
+        return self.state["params"]
+
+    @params.setter
+    def params(self, tree):
+        self.state = {**self.state, "params": tree}
+
+    @property
+    def opt_state(self):
+        return self.state["opt"]
+
+    @opt_state.setter
+    def opt_state(self, tree):
+        self.state = {**self.state, "opt": tree}
 
     def loss(self, params, tokens, labels, extra) -> torch.Tensor:
         if self.cfg.family == "encdec":
             return whisper_loss(params, extra, tokens, labels, self.cfg)
         return lm_loss(params, tokens, labels, self.cfg, patch_embeds=extra)
 
-    def train_step(self, tokens, labels, extra):
-        """One step from ``self.params`` / ``self.opt_state``; returns the
-        loss and the gradients' global norm before clipping."""
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree_leaves(self.params)]
-        loss = self.loss(tree_unflatten(self.params, leaves), tokens, labels,
-                         extra)
+    def _train_step(self, state, batch):
+        """The pure step: (state, batch) -> (new state, (loss, gnorm))."""
+        params = state["params"]
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        loss = self.loss(tree_unflatten(params, leaves), batch["tokens"],
+                         batch["labels"], batch.get("extra"))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten(self.params, [
+        grads = tree_unflatten(params, [
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)])
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, 1.0)
-            updates, self.opt_state = self.opt_update(grads, self.opt_state,
-                                                      self.params)
-            self.params = apply_updates(self.params, updates)
-        return loss.detach(), gnorm
+            updates, opt = self.opt_update(grads, state["opt"], params)
+            new_params = apply_updates(params, updates)
+        return {"params": new_params, "opt": opt}, (loss.detach(), gnorm)
+
+    def train_step(self, tokens, labels, extra):
+        """One step from ``self.params`` / ``self.opt_state`` on a batch
+        (numpy arrays or tensors); returns the loss and the gradients'
+        global norm before clipping."""
+        batch = {"tokens": tokens, "labels": labels}
+        if extra is not None:
+            batch["extra"] = extra
+        self.state, (loss, gnorm) = self._step(self.state, batch)
+        return loss, gnorm
 
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         """A host array on the trainer's device.  To the card it goes from
@@ -130,9 +163,7 @@ class LMTrainer:
         while self.step < end:
             t0 = time.perf_counter()
             tokens, labels = next(gen)
-            loss, gnorm = self.train_step(self._to_device(tokens),
-                                          self._to_device(labels),
-                                          self.extra(rng))
+            loss, gnorm = self.train_step(tokens, labels, self.extra(rng))
             self.step += 1
             dt = time.perf_counter() - t0
             self.step_times.append(dt)

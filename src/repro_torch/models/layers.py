@@ -238,7 +238,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def _write(buf: torch.Tensor, val: torch.Tensor, start: torch.Tensor
            ) -> torch.Tensor:
     """``dynamic_update_slice(buf, val, (0, start, 0, ...))``: a new buffer
-    with ``val`` cast to the buffer's dtype at ``start`` along dim 1."""
+    with ``val`` cast to the buffer's dtype at ``start`` along dim 1.  A
+    cast to an integer buffer saturates, as XLA's convert does (torch's
+    wraps: a bf16 quotient that rounds to 128 would land as -128)."""
+    if not buf.dtype.is_floating_point:
+        info = torch.iinfo(buf.dtype)
+        val = torch.clamp(val, info.min, info.max)
     rows = start.to(torch.int64) + torch.arange(val.shape[1], device=buf.device)
     return buf.index_copy(1, rows, val.to(buf.dtype))
 

@@ -76,9 +76,12 @@ def stack(trees: List[Any]):
 
 def remat(fn, *args):
     """``fn(*args)``, recomputed in the backward pass while autograd
-    records (``jax.checkpoint``)."""
+    records (``jax.checkpoint``).  The layers draw no random numbers, so
+    the generators' state is not saved for the recomputation: reading it
+    is forbidden inside a CUDA-graph capture, and meta tensors have none."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return fn(*args)
 
 

@@ -23,7 +23,9 @@ captured step shares), and why:
   that other threads serving on the same card (a hot-swap binds while the
   old version serves; a fleet builds a replica while another serves) do
   not abort it with their allocations and synchronises;
-* under one process-wide lock, since captures share torch's bookkeeping;
+* under one process-wide lock, since captures share torch's bookkeeping,
+  and with Python's garbage collector paused, since a collected object
+  that owns another graph would destroy it mid-capture;
 * into one memory pool a device, shared by its graphs.  A per-step lock
   serialises its replays and captures: they share the static buffers and
   the pool, and each replay copies its output out before the lock is let
@@ -37,6 +39,7 @@ capture raises.
 """
 from __future__ import annotations
 
+import gc
 import threading
 from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
                     Optional, Sequence, Tuple, Union)
@@ -94,10 +97,20 @@ def capture_graph(fn: Callable[[], Any], device: torch.device, *,
                 warm()
         side.synchronize()
         graph = torch.cuda.CUDAGraph()
-        with recording() as launches, torch.cuda.graph(
-                graph, pool=pool, stream=side,
-                capture_error_mode="thread_local"):
-            out = fn()
+        # no garbage collection inside the capture: a collected object
+        # that owns a graph (a dropped trainer or step) would destroy it
+        # mid-capture, which invalidates the capture (torch's graph
+        # context collects once on entry)
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with recording() as launches, torch.cuda.graph(
+                    graph, pool=pool, stream=side,
+                    capture_error_mode="thread_local"):
+                out = fn()
+        finally:
+            if gc_was_enabled:
+                gc.enable()
     return graph, out, launches
 
 

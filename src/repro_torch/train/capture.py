@@ -1,7 +1,8 @@
-"""The trainer's step and evaluation on fixed buffers, captured in CUDA
-graphs on the card: the port of the reference's ``jax.jit(self._train_step,
-static_argnames=("use_masks",))`` and of its jitted evaluation forward
-(``repro/train/trainer.py``).
+"""Steps on fixed buffers, captured in CUDA graphs on the card: the port
+of the reference's ``jax.jit`` of the SNN trainer's step and evaluation
+(``repro/train/trainer.py``), of the language-model trainer's step, of
+generation's prefill and decode step, and of a production cell's step
+(``repro/launch/{train,serve,steps}.py``).
 
 A captured graph reads and writes the same device memory on every replay,
 so the trainer keeps its state in fixed buffers (:class:`TrainState`):
@@ -24,20 +25,28 @@ served step uses: warm-ups on a side stream, then the capture there, in
 op on the same buffers.  The host input goes through a pinned staging
 buffer, copied on the step's stream; the host waits for that copy to end
 before it writes the next batch there, and otherwise not at all, so it
-prepares the next batch while the card runs the step.  Nothing falls
-back: a capture that fails raises.
+prepares the next batch while the card runs the step.  An input given as
+a tensor is copied into its buffer on the step's stream, unless it is
+that buffer.  Nothing falls back: a capture that fails raises.
+
+:func:`static_jit` is ``jax.jit(fn, donate_argnums=...)`` for a function
+of tensor trees, built on a :class:`StaticStep`: the step's buffers hold
+the arguments, and a donated argument's buffers are rewritten in place
+with the output of the same position and handed back as that output, so
+a loop that passes its outputs back in copies nothing.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Hashable, Iterable, Optional
+from typing import Any, Callable, Dict, Hashable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import (tree_leaves, tree_leaves_with_path, tree_map,
+                              tree_unflatten)
 
-__all__ = ["TrainState", "StaticStep"]
+__all__ = ["TrainState", "StaticStep", "static_jit"]
 
 
 def _copy_into(dst_tree, src_tree, name: str) -> None:
@@ -118,8 +127,9 @@ class StaticStep:
     """A function of fixed input buffers, run once per call and keyed as
     ``jit`` keys a trace.
 
-    ``step(key, host, fn)``: ``host`` maps input names to numpy arrays,
-    whose shapes and dtypes ``key`` must determine; they are copied into
+    ``step(key, host, fn)``: ``host`` maps input names to numpy arrays or
+    tensors, whose shapes and dtypes ``key`` must determine; they are
+    copied into
     the key's fixed buffers, then ``fn(inputs, commit=True)`` runs on
     them, by replaying the key's CUDA graph when ``capture`` (captured at
     the key's first use, after ``warmups`` calls of ``fn(inputs,
@@ -164,8 +174,10 @@ class StaticStep:
             slot.graph.replay()
         return slot.out
 
-    def _new_slot(self, host: Dict[str, np.ndarray]) -> _Slot:
+    def _new_slot(self, host: Dict[str, Any]) -> _Slot:
         def dtype(a):
+            if isinstance(a, torch.Tensor):
+                return a.dtype
             return torch.from_numpy(np.empty(0, a.dtype)).dtype
 
         inputs = {k: torch.empty(a.shape, dtype=dtype(a), device=self.device)
@@ -173,20 +185,73 @@ class StaticStep:
         if self.device.type != "cuda":
             return _Slot(inputs=inputs, staging={}, copied=None)
         staging = {k: torch.empty(a.shape, dtype=dtype(a), pin_memory=True)
-                   for k, a in host.items()}
+                   for k, a in host.items() if not isinstance(a, torch.Tensor)}
         return _Slot(inputs=inputs, staging=staging,
                      copied=torch.cuda.Event())
 
-    def _stage(self, slot: _Slot, host: Dict[str, np.ndarray]) -> None:
+    def _stage(self, slot: _Slot, host: Dict[str, Any]) -> None:
+        tensors = {k: a for k, a in host.items()
+                   if isinstance(a, torch.Tensor) and a is not slot.inputs[k]}
+        arrays = {k: a for k, a in host.items()
+                  if not isinstance(a, torch.Tensor)}
         if slot.copied is None:          # the CPU: a plain copy
-            for k, a in host.items():
+            for k, a in tensors.items():
+                slot.inputs[k].copy_(a)
+            for k, a in arrays.items():
                 slot.inputs[k].copy_(torch.from_numpy(np.ascontiguousarray(a)))
             return
         # the previous copy out of the pinned buffers must be over before
         # the host writes them again; the step itself is not waited for
         slot.copied.synchronize()
         with torch.cuda.device(self.device):
-            for k, a in host.items():
+            for k, a in tensors.items():
+                slot.inputs[k].copy_(a, non_blocking=True)
+            for k, a in arrays.items():
                 slot.staging[k].numpy()[...] = a
                 slot.inputs[k].copy_(slot.staging[k], non_blocking=True)
             slot.copied.record()
+
+
+def static_jit(fn: Callable, device: torch.device, *,
+               donate_argnums: Tuple[int, ...] = (), capture=None,
+               warmups: int = 1) -> Callable:
+    """``jax.jit(fn, donate_argnums=donate_argnums)`` on ``device``.
+
+    ``fn`` takes positional trees of tensors (numpy arrays are accepted
+    too, staged through pinned memory) and returns a tuple.  Each call
+    copies the arguments into the fixed buffers of their shapes (one
+    :class:`StaticStep` key per tree structure, shape and dtype), then
+    runs ``fn`` on them: by replaying its CUDA graph (``capture``, the
+    default on a CUDA device; captured at the shapes' first call), else op
+    by op.  Output ``i`` of a donated argument ``i`` is copied into that
+    argument's buffers, which are returned in its place; the other outputs
+    are ``fn``'s own (with a graph, its output tensors, rewritten by the
+    next replay).
+    """
+    static = StaticStep(device, device.type == "cuda" if capture is None
+                        else capture, warmups)
+
+    def call(*args):
+        pairs = tree_leaves_with_path(args)
+        host = {"/".join(path): leaf for path, leaf in pairs}
+        key = tuple((name, tuple(a.shape), str(a.dtype))
+                    for name, a in host.items())
+
+        def run(inputs, commit: bool):
+            bufs = tree_unflatten(args, [inputs[k] for k in host])
+            out = fn(*bufs)
+            if commit and donate_argnums:
+                out = list(out)
+                with torch.no_grad():
+                    for i in donate_argnums:
+                        for dst, src in zip(tree_leaves(bufs[i]),
+                                            tree_leaves(out[i])):
+                            dst.copy_(src)
+                        out[i] = bufs[i]
+                out = tuple(out)
+            return out
+
+        return static(key, host, run)
+
+    call.static = static
+    return call

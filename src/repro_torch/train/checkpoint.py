@@ -37,8 +37,15 @@ __all__ = ["CheckpointManager"]
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
+def _is_dtensor(leaf) -> bool:
+    return hasattr(leaf, "device_mesh") and hasattr(leaf, "placements")
+
+
 def _host(leaf) -> np.ndarray:
-    """A host copy of one leaf (the caller may go on mutating the tensor)."""
+    """A host copy of one leaf (the caller may go on mutating the tensor);
+    a DTensor is gathered whole first (a collective: every rank saves)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().cpu().numpy().copy()
     return np.array(leaf, copy=True)
@@ -137,7 +144,9 @@ class CheckpointManager:
                 device=None) -> Tuple[Any, Dict]:
         """Rebuild a tree shaped like ``like`` from checkpoint ``step``
         (default: the latest), every leaf a tensor on ``device`` (default:
-        the device of the ``like`` leaf it replaces, else the CPU).
+        the device of the ``like`` leaf it replaces, else the CPU); where
+        the ``like`` leaf is a DTensor, a DTensor with its mesh and
+        placements.
 
         Validates the leaf count and every shape first.  Returns
         ``(tree, manifest)``.
@@ -161,6 +170,15 @@ class CheckpointManager:
                 arrays.append(arr)
         restored = []
         for arr, leaf in zip(arrays, leaves):
+            if _is_dtensor(leaf):
+                # laid out as the like leaf is, whatever layout it was
+                # saved from (the reference's elastic restore)
+                from torch.distributed.tensor import distribute_tensor
+
+                restored.append(distribute_tensor(
+                    torch.from_numpy(arr).to(leaf.device_mesh.device_type),
+                    leaf.device_mesh, leaf.placements))
+                continue
             dev = device if device is not None else (
                 leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
             restored.append(torch.from_numpy(arr).to(dev))

@@ -23,7 +23,8 @@ Each step generates its batch on the host (numpy RadioML, then the numpy
 the clean frames first run through that channel scenario on the device.
 The trainer runs on the card unless ``device="cpu"`` is passed.  It
 expects float32 products: keep ``torch.backends.cuda.matmul.allow_tf32``
-and ``torch.backends.cudnn.allow_tf32`` off (PyTorch's default).
+off (PyTorch's default) and ``torch.backends.cudnn.allow_tf32`` off too
+(it defaults to on; no step of the trainer calls cuDNN).
 
 On the card the step is captured in CUDA graphs (:mod:`repro_torch.train.
 capture`, the port of the reference's ``jax.jit``): one graph per

@@ -839,3 +839,91 @@ def test_compressed_psum_over_one_nccl_rank(cuda, tmp_path):
     assert torch.equal(mean["w"], want["w"])
     assert torch.equal(mean["b"][0], want["b"][0])
     assert torch.equal(new_ef["w"], want_ef["w"])
+
+
+ZOO_ARCHS = ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "qwen1.5-0.5b",
+             "yi-9b", "qwen3-14b", "llama3-8b", "mamba2-780m", "internvl2-1b",
+             "recurrentgemma-9b", "whisper-large-v3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ZOO_ARCHS)
+def test_lm_trainer_captured_steps_equal_eager_ones(cuda, arch):
+    """Three captured LMTrainer steps (one graph, replayed) equal three
+    steps op by op on the same buffers, bit for bit."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.train import LMTrainer
+    from repro_torch.tree import tree_leaves
+
+    cfg = reduced_config(arch)
+    runs = {}
+    for capture in (True, False):
+        trainer = LMTrainer(cfg, batch=2, seq=16, device=cuda, capture=capture)
+        hist = trainer.run(3, log_every=1)
+        runs[capture] = (hist["loss"], trainer)
+    assert runs[True][0] == runs[False][0]
+    cap, eager = runs[True][1], runs[False][1]
+    assert cap._step.static.captures == 1 and eager._step.static.captures == 0
+    for x, y in zip(tree_leaves(cap.state), tree_leaves(eager.state)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", [a for a in ZOO_ARCHS if a != "whisper-large-v3"])
+def test_generate_captured_equals_eager(cuda, arch):
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch.serve import Generator, generate
+    from repro_torch.models.lm import init_lm
+
+    cfg = reduced_config(arch)
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device=cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)).to(cuda)
+    gen = Generator(cfg, params)
+    got = gen(prompts, 6)
+    again = gen(prompts, 6)           # the graphs replayed, not recaptured
+    want = generate(cfg, params, prompts, 6, capture=False)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert gen._prefill[6].static.captures == gen._decode.static.captures == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3-8b", "mamba2-780m", "qwen2-moe-a2.7b"])
+def test_cells_captured_equal_eager(cuda, arch):
+    """The reduced train, prefill and decode cells: the captured step
+    equals the same step op by op, bit for bit."""
+    from repro_torch.configs.registry import ShapeSpec, reduced_config
+    from repro_torch.distributed.sharding import Mesh
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import init_decode_state, init_lm
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = reduced_config(arch)
+    mesh = Mesh((1, 1), ("data", "model"))
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
+
+    def both(plan, make_args, n):
+        out = {}
+        for capture in (True, False):
+            step = plan.jitted(cuda, capture=capture)
+            args = make_args()
+            for _ in range(n):
+                res = step(*args)
+                args = tuple(res[i] if i in plan.donate_argnums else a
+                             for i, a in enumerate(args))
+            out[capture] = tree_leaves(res)
+        assert all(torch.equal(x, y) for x, y in zip(out[True], out[False]))
+
+    params = init_lm(torch.Generator().manual_seed(0), cfg, device=cuda)
+    train = steps._train_cell(arch, ShapeSpec("t", 16, 2, "train"), cfg, mesh)
+    both(train, lambda: ({"params": tree_map(torch.clone, params),
+                          "opt": adamw(3e-4, weight_decay=0.1)[0](params)},
+                         {"tokens": toks.to(cuda), "labels": toks.to(cuda)}), 3)
+    bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    prefill = steps._prefill_cell(arch, ShapeSpec("p", 16, 2, "prefill"), cfg, mesh)
+    both(prefill, lambda: (bf16, {"tokens": toks.to(cuda)}), 1)
+    decode = steps._decode_cell(arch, ShapeSpec("d", 16, 2, "decode"), cfg, mesh)
+    both(decode, lambda: (bf16, init_decode_state(cfg, 2, 16, device=cuda),
+                          toks[:, :1].to(cuda)), 4)

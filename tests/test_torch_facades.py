@@ -22,13 +22,9 @@ REF_EXPORTS = sorted([SRC / "repro" / "api.py"]
                         if "__all__" in p.read_text()])
 
 # exporting reference module -> the names it exports whose defining
-# modules are not ported yet (ROADMAP Queue 1 item 8: the sharding rule
-# table of distributed/sharding.py)
-WAITING = {
-    "repro.distributed": [
-        "act_pspec", "decode_state_specs", "dp_axes", "logits_pspec",
-        "named_tree", "partition_params", "train_batch_spec"],
-}
+# modules are not ported yet (none left: the sharding rule table of
+# distributed/sharding.py was the last)
+WAITING = {}
 
 
 def _exports(path: pathlib.Path):

@@ -47,7 +47,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 # tier, the channel scenarios, the robustness evaluation, the model
 # lifecycle, the fleet, the obs analysis plane, the served step's capture,
 # the serving CLI, the trainer's captured step, the SNN's distributed
-# pieces, the examples and the language-model zoo, each imported alone in
+# pieces, the examples, the language-model zoo and its production cells
+# (sharding rules, meshes, steps, roofline, dry-runs), each imported alone in
 # a fresh interpreter
 _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.obs.metrics", "repro_torch.core.cost_model",
@@ -83,7 +84,9 @@ _ALONE = ["repro_torch.fixed", "repro_torch.obs.activity",
           "repro_torch.models.lm", "repro_torch.models.whisper",
           "repro_torch.configs", "repro_torch.configs.registry",
           "repro_torch.distributed.ctx", "repro_torch.convert",
-          "repro_torch.examples.lm_pretrain"]
+          "repro_torch.examples.lm_pretrain", "repro_torch.launch.mesh",
+          "repro_torch.launch.steps", "repro_torch.launch.roofline",
+          "repro_torch.launch.dryrun", "repro_torch.launch.pp_dryrun"]
 
 
 @pytest.mark.parametrize("module", _ALONE)
