@@ -41,7 +41,28 @@ file; exits non-zero without them.  In order, it
    served batch's step (host to host) into its Σ-Δ encode and its fused
    kernel, and times one layer-by-layer batch host to host beside the
    sum of its kernels' ``ms``;
-7. drives the paper's measurement plane at the same width, each path
+7. drives the paper's SNN with bf16 weights (``bf16_phase``:
+   ``init_snn(0, SNNConfig(), dtype=torch.bfloat16)``, density-0.5 masks
+   in bf16, batch 64, the 256 requests): the three bf16 kernel forms
+   (``goap_conv_block_sparse_bf16``, ``wm_fc_matmul_bf16``,
+   ``lif_update_fused_bf16``) bit-equal to their plain versions on the
+   served path's operands (the count of differing elements printed; the
+   conv's cast to bf16, a form the served conv never reaches) and within
+   1 bf16 ulp on random normal operands at the reference's test shapes,
+   then timed like the f32 kernels (the bound over the bf16 tensor-core
+   peak for the two products); a captured ``AsyncAMCServeEngine(backend=
+   "cuda")`` serves the 256 requests with 0 failed, by graph replay alone,
+   launching the bf16 FC and LIF forms and the f32 conv and LIF (launches
+   counted per replay), with the card's layered ``cuda`` predictions;
+   ``dense``, ``goap``, ``stream``, ``cuda`` and ``cuda_fused`` on the card
+   against the same backend on the CPU on 64 frames (predictions equal,
+   logits within 1 bf16 ulp, bf16 on the layered paths, f32 from the fused
+   kernel); the fused kernel on the bf16 weights bit-equal to the f32
+   model on their upcast, under another plan digest; and an engine for
+   each of those backends and for the default race (``auto``, the kernel
+   backends timed without error), each serving one batch by graph replay
+   with its plan's predictions.  Prints ``bf16_phase``;
+8. drives the paper's measurement plane at the same width, each path
    with the launch counts set to 0 just before it and read just after:
    - ``stream``: the Algorithm-2 interpreter (plain torch, no kernel) on
      the 64 frames; its per-conv counters must equal the whole-network
@@ -58,7 +79,7 @@ file; exits non-zero without them.  In order, it
      ``backend="fixed"`` with LSQ step sizes at 16 and 8 bits; the
      served step's int32 logits must be bit-equal to the numpy
      ``GoldenNet.forward_iq`` on the same I/Q; prints the step's ms;
-8. trains the paper model on the card (``train``: ``SNNTrainer`` at full
+9. trains the paper model on the card (``train``: ``SNNTrainer`` at full
    width, batch 64, Table V's 25-20-15-20-25 per-layer densities, 16-bit
    LSQ, ``prune_every=10``, 40 steps, checkpoints in a temporary
    directory; every step replayed from the trainer's CUDA graph) and
@@ -85,29 +106,29 @@ file; exits non-zero without them.  In order, it
    world-size-1 NCCL group (a ``FileStore`` rendezvous in a temporary
    directory) equal to the dequantized ``ef_compress`` codes, with the
    compression ratio;
-9. races the backends as a user's default engine does
+10. races the backends as a user's default engine does
    (``autotune_phase``: ``AsyncAMCServeEngine(params, cfg, masks)`` with
    ``backend="auto"`` races dense, goap, cuda and cuda_fused on the
    batch-64 bucket; ``cuda`` and ``cuda_fused`` must be timed and raise
-   nothing, the race must launch all four kernels, and the 256 served
+   nothing, the race must launch all four f32 kernel forms, and the 256 served
    requests only the winner's, with the ``goap`` backend's predictions;
    each candidate's race time stands beside its step on the race's
    all-zero probe and on real frames);
-10. races them layer by layer (``per_layer_phase``: ``backend=
+11. races them layer by layer (``per_layer_phase``: ``backend=
     "per-layer"``; every weighted layer times cuda and cuda_fused without
     error, and the winning assignment serves the 256 requests with
     ``goap``'s predictions and only its kernels);
-11. runs the synchronous ``AMCServeEngine(backend="cuda_fused")`` on the
+12. runs the synchronous ``AMCServeEngine(backend="cuda_fused")`` on the
     256 frames (``sync_phase``: predictions equal to the auto engine's;
     p50/p99, fps, and the auto engine's ``export_stats()``);
-12. profiles the ``cuda`` plan's layer steps and makes a disk-tier round
+13. profiles the ``cuda`` plan's layer steps and makes a disk-tier round
     trip of the plan cache in a temporary directory (``plan_phase``: a
     fresh cache loads every layer's artifacts, 5 for ``fixed`` and 3 for
     ``cuda_fused``, and builds none);
-13. prints the paper's Tables I, II, III and IV-V and Fig. 8 with Table V
+14. prints the paper's Tables I, II, III and IV-V and Fig. 8 with Table V
     retention at the reference scripts' defaults, with the seconds each
     took (``paper_phase``; Table I must match the paper);
-14. runs ``python -m repro_torch.launch.eval`` in process at full width
+15. runs ``python -m repro_torch.launch.eval`` in process at full width
     (``robustness_phase``: the default suite's 5 channel scenarios x SNRs
     -10, 0, 10, 18 dB x ``cuda_fused,cuda,goap``, 64 frames a cell, plus
     the clean section): exit 0, logits within 1e-5 and predictions equal
@@ -115,7 +136,7 @@ file; exits non-zero without them.  In order, it
     many times as the cells require, and for one cell of each of the 7
     named scenarios the card's impaired frames equal to the CPU's within
     1e-5; prints the accuracy surface and the wall seconds per backend;
-15. drives the model lifecycle (``lifecycle_phase``): two versions
+16. drives the model lifecycle (``lifecycle_phase``): two versions
     published to a registry in a temporary directory, 512 requests
     served through ``cuda_fused`` while the engine hot-swaps from v1 to
     v2, no failed request, the requests after the swap served by v2 with
@@ -123,14 +144,14 @@ file; exits non-zero without them.  In order, it
     reloaded by a fresh registry from the disk tier without building an
     artifact, then three canary-monitor rounds on ``urban_fading``
     frames; prints the swap's report;
-16. holds the served step captured in CUDA graphs against the same step
+17. holds the served step captured in CUDA graphs against the same step
     run op by op (``capture_phase``): for ``cuda_fused`` with gauges on
     and off, ``cuda``, ``fixed`` (16-bit LSQ) and ``goap``, every bucket
     captured at warm-up, every bucket's replay bit-equal to the eager
     step on the same frames (logits, and counters with gauges), 20
     replays launching exactly 20 times what the capture recorded; prints
     the step host to host, captured and eager, in turns;
-17. runs the serving CLI in process (``serve_cli_phase``: ``python -m
+18. runs the serving CLI in process (``serve_cli_phase``: ``python -m
     repro_torch.launch.serve --arch saocds-amc --batch 64 --requests 512
     --replicas 2 --metrics-port 0 --slo default --trace-dump ...
     --perfetto-dump ... --hold-s 5``): during the hold ``/readyz`` answers
@@ -139,23 +160,26 @@ file; exits non-zero without them.  In order, it
     submit -> complete with admits on both replicas, the Perfetto dump
     validates, no request failed, and the CLI's predictions equal the
     plain ``goap`` backend's; then one replica serves the same requests
-    for the 1-replica frames/s and p50/p99;
-18. serves the 256 requests data-parallel (``mesh_phase``:
+    in two windows, one with tracing, ``/metrics`` and the SLOs and one
+    without, each printed (``cli_window``: frames/s, p50/p99, the
+    collector's passes and the SLO thread's longest sweep) and each
+    failing the phase unless it served all of its requests within 120 s;
+19. serves the 256 requests data-parallel (``mesh_phase``:
     ``AsyncAMCServeEngine(mesh=serve_mesh())`` over every local card,
     ``backend="auto"``, batch 64): predictions equal to the unsharded
     engine's and ``goap``'s, buckets aligned to the mesh, every batch by
     graph replay on every card, only the winner's kernels (the fused one
     when ``cuda_fused`` wins); prints the sharded step beside the
     unsharded one, host to host;
-19. runs the 4-stage SNN pipeline of ``repro_torch.examples.snn_pipeline``
+20. runs the 4-stage SNN pipeline of ``repro_torch.examples.snn_pipeline``
     on the card (``pipeline_phase``): logits within 1e-5 of the
     unpipelined ``dense`` forward and of the same pipeline on the CPU;
     prints its seconds;
-20. runs the five SNN examples in process on the card with tiny budgets
+21. runs the five SNN examples in process on the card with tiny budgets
     (``examples_phase``; each must return 0);
-21. runs the language-model zoo (``zoo_phase``, with the launch counts set
+22. runs the language-model zoo (``zoo_phase``, with the launch counts set
     to 0 just before it and read just after: it must launch none of the
-    four kernels).  All 10 architectures at their reduced configs, the
+    seven kernel forms).  All 10 architectures at their reduced configs, the
     same params on the card and on the CPU: the card's
     ``lm_forward`` / ``whisper_forward`` logits within 1e-4 of the CPU's,
     one ``LMTrainer`` step's loss within 1e-5 relative of the CPU's, and
@@ -173,9 +197,9 @@ file; exits non-zero without them.  In order, it
     ``zoo_phase`` with every number beside the card's name and power
     limit.  Its full-width trainer and generation run op by op
     (``capture=False``): the eager baseline of the cells phase;
-22. runs the zoo's production cells (``cells_phase``, with the launch
+23. runs the zoo's production cells (``cells_phase``, with the launch
     counts set to 0 just before it and read just after: it must launch
-    none of the four kernels), each step captured in a CUDA graph and
+    none of the seven kernel forms), each step captured in a CUDA graph and
     held bit for bit to the same step op by op: the qwen1.5-0.5b train
     cell (``train_4k``'s seq 4096, global batch cut to 4, a 1-card mesh;
     3 steps: loss, gradient norm, params and moments), the mamba2-780m
@@ -191,13 +215,19 @@ file; exits non-zero without them.  In order, it
     ``cells_phase`` with step ms captured and eager, idle shares, peak
     memory, counted TFLOP/s, tokens/s, beside the card's name and power
     limit;
-23. prints the whole run's seconds, one JSON line of per-kernel results,
+24. prints the whole run's seconds, one JSON line of per-kernel results,
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
+
+``--only bf16`` and ``--only cli_windows`` (with ``--windows N``: N pairs
+of 1-replica CLI windows, one with the observability on and one without,
+first by the CLI without its frozen heap, then by the CLI as it is) run
+those phases alone after the build, and print no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -214,6 +244,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # operations peak at half that rate.
 PEAK_F32_INSTRUCTIONS = 67e12 / 2
 PEAK_BYTES = 3.35e12
+# dense bf16 rate of the tensor cores (a multiply-add counts two)
+PEAK_BF16_FLOPS = 989e12
 BATCH = 64
 REQUESTS = 256
 SEED = 0
@@ -556,7 +588,7 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
 
 
 def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-22 on ``device``; returns the kernels JSON object."""
+    """Phases 3-23 on ``device``; returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -645,9 +677,15 @@ def run(device, timers: Timers, seed: int = SEED):
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "inorder_max_abs_err", "ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "plan", "ms_batch1",
-            "plan_batch1")
+            "plan_batch1", "note")
     result = {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
 
+    print("phase: bf16")
+    bf16_rows, bf16_served = run_bf16_phase(device, timers, seed)
+    for row in bf16_rows:
+        row["launches"] = bf16_served[row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
+    result["kernels"] += [{k: row.get(k) for k in keys} for row in bf16_rows]
     print("phase: stream")
     stream_plan = run_stream_phase(program, params, masks, plan, frames_b,
                                    device, timers)
@@ -656,7 +694,7 @@ def run(device, timers: Timers, seed: int = SEED):
     print("phase: fixed")
     run_fixed_phase(params, masks, cfg, iq, device, timers)
     print("phase: train")
-    paths = {}
+    paths = {"bf16": bf16_served}
     paths["trained"], trained = run_train_phase(cfg, device, timers, seed)
     print("phase: compression")
     run_compression_phase(trained, device)
@@ -1552,7 +1590,8 @@ def run_robustness_phase(device) -> dict:
     n_cells = (len(report["scenarios"]) + 1) * len(report["config"]["snr_grid"])
     cfg = SNNConfig()
     n_conv, n_fc = len(cfg.conv_specs), len(cfg.fc_specs)
-    want_counts = {"stream_fused_forward": n_cells,
+    want_counts = {**{k: 0 for k in counts},
+                   "stream_fused_forward": n_cells,
                    "goap_conv_block_sparse": n_conv * n_cells,
                    "wm_fc_matmul": n_fc * n_cells,
                    "lif_update_fused": (n_conv + n_fc) * n_cells}
@@ -1867,13 +1906,15 @@ def run_capture_phase(params, masks, cfg, iq, device, timers) -> dict:
 
 CLI_REQUESTS = 512
 CLI_HOLD_S = 5.0
+# a 1-replica window must have served its requests within this many seconds
+CLI_WINDOW_LIMIT_S = 120.0
 
 
-def _run_cli(argv, until: str = ""):
+def _run_cli(argv, until: str = "", limit_s: float = 600.0):
     """``repro_torch.launch.serve.main(argv)`` in a thread, its standard
     output captured.  With ``until``, returns (thread, output, result)
     once a line containing it was printed (the CLI then holds); without,
-    after the CLI returned."""
+    after the CLI returned or ``limit_s`` passed."""
     import contextlib
     import io
     import threading
@@ -1898,7 +1939,7 @@ def _run_cli(argv, until: str = ""):
                                  f"{result}\n{out.getvalue()}")
         time.sleep(0.05)
     if not until:
-        thread.join(timeout=600)
+        thread.join(timeout=limit_s)
     return thread, out, result
 
 
@@ -1915,6 +1956,156 @@ def _cli_stats(text: str) -> dict:
             "backend": head.group(3), "frames_per_s": int(head.group(4)),
             "p50_ms": float(lat.group(1)), "p95_ms": float(lat.group(2)),
             "p99_ms": float(lat.group(3))}
+
+
+@contextlib.contextmanager
+def window_pauses(t0: float):
+    """What could hold a CLI window's workers: the collector's passes
+    (``gc.callbacks``: per generation the count and the longest, ms) and
+    the SLO thread's sweeps (the longest ``TimeSeriesRecorder.sample`` and
+    watcher step, ms), each with its start in seconds after ``t0``; and
+    the first submit.  Filled in when the window ends."""
+    import gc
+
+    from repro_torch.obs import anomaly, timeseries
+    from repro_torch.serve import engine
+
+    found = {"gc": {}, "obs_ms": 0.0, "obs_at_s": None, "first_submit_s": None}
+    started = {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["gc"] = time.perf_counter()
+            return
+        ms = (time.perf_counter() - started.pop("gc", time.perf_counter())) * 1e3
+        n, worst, at = found["gc"].get(info["generation"], (0, 0.0, None))
+        if ms > worst:
+            worst, at = ms, time.perf_counter() - t0 - ms / 1e3
+        found["gc"][info["generation"]] = (n + 1, worst, at)
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ms = (time.perf_counter() - t) * 1e3
+                if ms > found["obs_ms"]:
+                    found["obs_ms"], found["obs_at_s"] = ms, t - t0
+        return call
+
+    def first_submit(fn):
+        def call(*args, **kwargs):
+            if found["first_submit_s"] is None:
+                found["first_submit_s"] = time.perf_counter() - t0
+            return fn(*args, **kwargs)
+        return call
+
+    patched = [(timeseries.TimeSeriesRecorder, "sample"),
+               (anomaly.SeriesWatcher, "step"),
+               (anomaly.BurnRateWatcher, "step"),
+               (engine.AsyncAMCServeEngine, "submit")]
+    saved = [getattr(cls, name) for cls, name in patched]
+    for (cls, name), fn in zip(patched, saved):
+        setattr(cls, name, first_submit(fn) if name == "submit" else timed(fn))
+    gc.callbacks.append(on_gc)
+    try:
+        yield found
+    finally:
+        gc.callbacks.remove(on_gc)
+        for (cls, name), fn in zip(patched, saved):
+            setattr(cls, name, fn)
+        found["gc"] = {f"gen{g}": {"n": n, "max_ms": worst, "max_at_s": at}
+                       for g, (n, worst, at) in sorted(found["gc"].items())}
+
+
+def cli_window(device, observed: bool, work: pathlib.Path,
+               frozen: bool = True) -> dict:
+    """One 1-replica window of the serving CLI: 512 requests at batch 64,
+    with tracing, a metrics endpoint and the default SLOs (``observed``)
+    or with none of them.  ``frozen=False`` serves without the CLI's
+    frozen heap (``launch.serve.serving_heap`` as a no-op: the CLI before
+    the fix), to show the stall beside the fix in one call.  Fails when
+    the window has not served all of its requests within
+    CLI_WINDOW_LIMIT_S (a stalled replica) or the CLI failed; prints and
+    returns its frames/s and p50/p99."""
+    from repro_torch.launch import serve
+    from repro_torch.obs import (disable_tracing, metrics,
+                                 set_default_alert_manager,
+                                 set_default_recorder)
+
+    argv = ["--arch", "saocds-amc", "--batch", str(BATCH), "--requests",
+            str(CLI_REQUESTS), "--device", str(device), "--replicas", "1",
+            "--deadline-ms", "600000"]
+    if observed:
+        argv += ["--metrics-port", "0", "--slo", "default",
+                 "--trace-dump", str(work / "window_trace.json"),
+                 "--perfetto-dump", str(work / "window_perfetto.json")]
+    old = metrics.set_default_registry(metrics.MetricsRegistry())
+    heap = serve.serving_heap
+    if not frozen:
+        serve.serving_heap = contextlib.nullcontext
+    t0 = time.perf_counter()
+    with window_pauses(t0) as pauses:
+        try:
+            thread, out, result = _run_cli(argv, limit_s=CLI_WINDOW_LIMIT_S)
+        finally:
+            serve.serving_heap = heap
+            metrics.set_default_registry(old)
+            disable_tracing()
+            set_default_recorder(None)
+            set_default_alert_manager(None)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    if thread.is_alive():
+        raise AssertionError(f"a 1-replica window (observed={observed}) "
+                             f"served nothing to its end within "
+                             f"{CLI_WINDOW_LIMIT_S} s:\n{text}")
+    if result.get("rc") != 0 or "outcomes:" in text:
+        raise AssertionError(f"a 1-replica window failed: {result}\n{text}")
+    stats = _cli_stats(text)
+    if stats["requests"] != CLI_REQUESTS:
+        raise AssertionError(f"a 1-replica window served {stats['requests']} "
+                             f"of {CLI_REQUESTS}")
+    window = {"observed": observed, "frozen": frozen,
+              "frames_per_s": stats["frames_per_s"],
+              "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+              "backend": stats["backend"], "seconds": seconds, **pauses}
+    print("cli_window " + json.dumps(window))
+    return window
+
+
+def run_cli_windows(device, n: int, unfrozen: bool = False) -> dict:
+    """ROADMAP Queue 3's stalled replica: ``n`` 1-replica windows with
+    tracing, ``/metrics`` and ``--slo default`` on and ``n`` with them off,
+    in turns.  With ``unfrozen``, the CLI without its frozen heap (the CLI
+    before the fix) serves the same ``n`` pairs first, in the same turns:
+    its collector then carries its counts from window to window, as a
+    process serving on does.  An observed window below a fifth of the
+    median unobserved window of its kind is reported (``stalled``,
+    ``stalled_unfrozen``)."""
+    import shutil
+    import tempfile
+
+    kinds = ([False] if unfrozen else []) + [True]
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_windows_"))
+    try:
+        windows = [cli_window(device, observed, work, frozen)
+                   for frozen in kinds for _ in range(n)
+                   for observed in (True, False)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line = {"windows": windows, "card": nvidia_smi()}
+    for frozen in kinds:
+        mine = [w for w in windows if w["frozen"] == frozen]
+        off = statistics.median(w["frames_per_s"] for w in mine
+                                if not w["observed"])
+        suffix = "" if frozen else "_unfrozen"
+        line["median_off_frames_per_s" + suffix] = off
+        line["stalled" + suffix] = sum(1 for w in mine if w["observed"]
+                                       and w["frames_per_s"] < off / 5)
+    print("cli_windows " + json.dumps(line))
+    return line
 
 
 def run_serve_cli_phase(cfg, device) -> dict:
@@ -1989,9 +2180,6 @@ def run_serve_cli_phase(cfg, device) -> dict:
         disable_tracing()        # the CLI leaves the process's tracer on
         set_default_recorder(None)
         set_default_alert_manager(None)
-        _, out1, result1 = _run_cli(common + ["--replicas", "1",
-                                              "--deadline-ms", "600000"])
-        text1 = out1.getvalue()
     finally:
         metrics.set_default_registry(old)
         disable_tracing()
@@ -2000,14 +2188,16 @@ def run_serve_cli_phase(cfg, device) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     for line in text.splitlines():
         print("  cli| " + line)
-    if thread.is_alive() or result.get("rc") != 0 or result1.get("rc") != 0:
-        raise AssertionError(f"the CLI failed: {result}, {result1}\n{text1}")
-    if "outcomes:" in text or "outcomes:" in text1:
+    if thread.is_alive() or result.get("rc") != 0:
+        raise AssertionError(f"the CLI failed: {result}\n{text}")
+    if "outcomes:" in text:
         raise AssertionError("the CLI reports expired or shed requests")
-    stats, stats1 = _cli_stats(text), _cli_stats(text1)
-    if stats["requests"] != CLI_REQUESTS or stats1["requests"] != CLI_REQUESTS:
-        raise AssertionError(f"served {stats['requests']} / "
-                             f"{stats1['requests']} of {CLI_REQUESTS}")
+    stats = _cli_stats(text)
+    if stats["requests"] != CLI_REQUESTS:
+        raise AssertionError(f"served {stats['requests']} of {CLI_REQUESTS}")
+    # one replica alone, a window with the observability on and one
+    # without (each printed; each must serve all of its requests)
+    windows = run_cli_windows(device, 1)["windows"]
     code, body = scraped["/readyz"]
     if code != 200 or json.loads(body)["ready"] is not True:
         raise AssertionError(f"/readyz answered {code}: {body!r}")
@@ -2060,7 +2250,8 @@ def run_serve_cli_phase(cfg, device) -> dict:
     if n_diff:
         raise AssertionError(f"{n_diff} CLI predictions differ from goap")
     print("serve_cli_phase " + json.dumps({
-        "seconds": time.perf_counter() - t_phase, "replicas_2": stats, "replicas_1": stats1,
+        "seconds": time.perf_counter() - t_phase, "replicas_2": stats,
+        "replicas_1": windows,
         "serve_s_2_replicas": serve_s, "per_replica": per_replica,
         "healthz": health["status"], "alerts_firing": len(alerts["firing"]),
         "perfetto_events": len(doc["traceEvents"]), "launches": counts,
@@ -2827,9 +3018,419 @@ def run_cells_phase(device, fused_ms: float, seed: int = SEED) -> dict:
     return line
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# bf16_phase: the paper's SNN with bf16 weights (init_snn(dtype=bf16)).
+# ---------------------------------------------------------------------------
+
+# bf16 form -> (its CUDA source's stem, the reference's Pallas kernel)
+BF16_FORMS = {
+    "goap_conv_block_sparse_bf16": ("goap_conv", "src/repro/kernels/goap_conv.py:55"),
+    "wm_fc_matmul_bf16": ("wm_fc", "src/repro/kernels/wm_fc.py:40"),
+    "lif_update_fused_bf16": ("lif_update", "src/repro/kernels/lif_update.py:46"),
+}
+# the one bf16 form no path launches: the reference's conv casts to f32
+BF16_NOTES = {"goap_conv_block_sparse_bf16": (
+    "kernel contract only: no path reaches this form (ops.goap_conv_op "
+    "casts to f32, as the reference's does); held and timed on the served "
+    "convs' operands cast to bf16")}
+BF16_BACKENDS = ("dense", "goap", "stream", "cuda", "cuda_fused")
+# the reference's kernel-test shapes, on random normal operands
+BF16_FC_SHAPES = ((8, 256, 64), (5, 100, 37), (512, 1024, 128))
+BF16_GOAP_TILES = ((8, 16), (8, 32))         # (block_oc, block_k)
+BF16_LIF_SHAPES = ((1, 16), (4, 128), (8, 200), (3, 1030), (16, 7))
+
+
+def bf16_ulps(got, want):
+    """|got - want| per element in bf16 ulps of ``want`` (8 significant
+    bits: one ulp of x is 2**(floor(log2|x|) - 7))."""
     import torch
 
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return torch.where(g == w, torch.zeros_like(w), (g - w).abs() / ulp)
+
+
+def bf16_bound_ms(n_bytes: float, n_flops: float):
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bf16_masks(params):
+    """Density-0.5 magnitude masks in the weights' dtype: an f32 mask
+    (make_mask_pytree's) promotes w * mask to f32, as in the reference, and
+    the model would then run its FC layers in f32."""
+    import torch
+
+    from repro_torch.api import make_mask_pytree
+
+    return {g: [m.to(torch.bfloat16) for m in ms]
+            for g, ms in make_mask_pytree(params, DENSITY).items()}
+
+
+def served_bf16_calls(plan, frames_b):
+    """One layer-by-layer batch of the bf16 ``cuda`` plan, recording the
+    operands of every per-layer kernel call; returns them as the bf16
+    forms' operands: the FC products and FC LIFs as called (bf16), and the
+    conv products cast to bf16 (exact: bf16-valued tiles, binary X'), the
+    form ``ops.goap_conv_op`` never reaches."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    raw = []
+    saved = {n: getattr(ops, n) for n in ("goap_conv_block_sparse",
+                                          "wm_fc_matmul", "lif_update_fused")}
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            raw.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for n, fn in saved.items():
+        setattr(ops, n, recording(n, fn))
+    try:
+        logits = plan.bound.batch(frames_b)
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    calls = {name: [] for name in BF16_FORMS}
+    for name, args, kwargs in raw:
+        if name == "goap_conv_block_sparse":
+            blocks, cols, x = args
+            calls["goap_conv_block_sparse_bf16"].append(
+                ((blocks.to(torch.bfloat16), cols, x.to(torch.bfloat16)), kwargs))
+        elif args[0].dtype == torch.bfloat16 or args[1].dtype == torch.bfloat16:
+            calls[name + "_bf16"].append((args, kwargs))
+    missing = [n for n, c in calls.items() if not c]
+    if missing:
+        raise AssertionError(f"the bf16 cuda path never called {missing}")
+    return logits, calls
+
+
+def bf16_work(name, args):
+    """(bytes, flops, one bf16 library call or None) of one call."""
+    import torch
+
+    from repro_torch.kernels.goap_conv import dense_of_blocks
+
+    if name == "goap_conv_block_sparse_bf16":
+        blocks, cols, x = args
+        dense = dense_of_blocks(blocks, cols, x.shape[0])
+        macs = float((dense != 0).sum(0).double() @ (x != 0).sum(1).double())
+        out = blocks.shape[0] * blocks.shape[2] * x.shape[1] * 2
+        return (nbytes(blocks, cols, x) + out, 2 * macs,
+                lambda: torch.matmul(dense, x))
+    if name == "wm_fc_matmul_bf16":
+        sp, w = args
+        macs = float((sp != 0).sum(0).double() @ (w != 0).sum(1).double())
+        return (nbytes(sp, w) + 2 * sp.shape[0] * w.shape[1], 2 * macs,
+                lambda: torch.matmul(sp.to(w.dtype), w))
+    cur = args[0]
+    # multiply, add, compare, subtract per neuron and timestep (no tensor
+    # cores: the f32 instruction rate bounds it, as the f32 form's)
+    return (nbytes(*args) + nbytes(cur, args[1]), 4.0 * cur.numel(), None)
+
+
+def check_bf16_kernels(calls, device, timers, seed):
+    """Each bf16 form against its plain version on the card: bit-equal on
+    the served path's operands (the count of differing elements printed),
+    within 1 bf16 ulp on random normal operands at the reference's test
+    shapes; then timed on the served operands.  Returns the rows."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+
+    rng = np.random.default_rng(seed)
+
+    def bf(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device).to(torch.bfloat16)
+
+    random_calls = {
+        "wm_fc_matmul_bf16": [
+            ((bf(rng.random((b, i)) < 0.5),
+              bf((rng.random((i, o)) < 0.4) * rng.normal(size=(i, o)))), {})
+            for b, i, o in BF16_FC_SHAPES],
+        "goap_conv_block_sparse_bf16": [
+            ((bf(rng.normal(size=(3, 4, bo, bk))),
+              torch.as_tensor(rng.integers(0, 5, (3, 4)), dtype=torch.int32,
+                              device=device),
+              bf(rng.random((5 * bk, 64)) < 0.5)),
+             {"block_oc": bo, "block_k": bk}) for bo, bk in BF16_GOAP_TILES],
+        "lif_update_fused_bf16": [
+            ((bf(rng.normal(size=(t, n))), bf(rng.normal(size=n)),
+              bf(rng.uniform(0.5, 0.99, n)), bf(rng.uniform(0.5, 1.5, n)),
+              bf(rng.uniform(0.3, 1.2, n))), {}) for t, n in BF16_LIF_SHAPES],
+    }
+    rows = []
+    for name, (stem, replaces) in BF16_FORMS.items():
+        # the LIF's plain loop is dtype-generic: its bf16 form has no own
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, name + "_ref", None) or getattr(
+            kernels, name.removesuffix("_bf16") + "_ref")
+        n_diff, n_elems, max_err = 0, 0, 0.0
+        for args, kwargs in calls[name]:
+            got, want = kernel(*args, **kwargs), plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                if g.dtype != torch.bfloat16 or g.shape != w.shape:
+                    raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)} "
+                                         f"against {tuple(w.shape)}")
+                n_diff += int((g.view(torch.int16) != w.view(torch.int16)).sum())
+                n_elems += g.numel()
+                max_err = max(max_err, float((g.float() - w.float()).abs().max()))
+        print(f"  {name} on the served operands: {len(calls[name])} calls, "
+              f"{n_diff} of {n_elems} elements differ from the plain version")
+        if n_diff:
+            raise AssertionError(f"{name}: not bit-equal to its plain version "
+                                 "on the served operands")
+        worst, r_diff = 0.0, 0
+        for args, kwargs in random_calls[name]:
+            got, want = kernel(*args, **kwargs), plain(*args)
+            torch.cuda.synchronize()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                r_diff += int((g.view(torch.int16) != w.view(torch.int16)).sum())
+                worst = max(worst, float(bf16_ulps(g, w).max()))
+        print(f"  {name} on random normal operands: {r_diff} elements differ, "
+              f"at most {worst} bf16 ulp")
+        if worst > 1.0:
+            raise AssertionError(f"{name}: {worst} bf16 ulp from its plain "
+                                 "version on random operands")
+        work = [bf16_work(name, args) for args, _ in calls[name]]
+        b_ms, b_by = (bf16_bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
+                      if name != "lif_update_fused_bf16" else
+                      bound_ms(sum(w[0] for w in work), sum(w[1] for w in work)))
+
+        def total(clock, fns):
+            return sum(clock(fn) for fn in fns)
+
+        launch = [lambda a=args, k=kwargs: kernel(*a, **k)
+                  for args, kwargs in calls[name]]
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{stem}.cu",
+            replaces=replaces, max_abs_err=max_err,
+            random_max_ulp=worst, served_elements_differ=n_diff,
+            ms=total(timers.graph, launch), call_ms=total(timers.call, launch),
+            plain_ms=total(timers.call, [lambda a=args: plain(*a)
+                                         for args, _ in calls[name]]),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=(None if work[0][2] is None else
+                        total(timers.graph, [w[2] for w in work])),
+            note=BF16_NOTES.get(name)))
+    return rows
+
+
+def run_bf16_phase(device, timers, seed: int = SEED):
+    """The paper's SNN with bf16 weights at full width (``init_snn(seed,
+    SNNConfig(), dtype=torch.bfloat16)``, density-0.5 masks in bf16, batch
+    64, the 256 requests).  Returns (the three bf16 forms' rows, launches
+    of the served path)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (AsyncAMCServeEngine, SNNConfig, compile_plan,
+                                 compile_snn, init_snn)
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    cfg = SNNConfig()
+    params = init_snn(seed, cfg, dtype=torch.bfloat16)
+    masks = bf16_masks(params)
+    program = compile_snn(cfg)
+    rng = np.random.default_rng(seed)
+    iq = rng.normal(size=(REQUESTS, cfg.conv_specs[0][1], cfg.input_width)
+                    ).astype(np.float32)
+    frames = [sigma_delta_encode_batch(torch.as_tensor(chunk, device=device),
+                                       cfg.timesteps)
+              for chunk in np.split(iq, REQUESTS // BATCH)]
+    frames_b = frames[0]
+    plan = compile_plan(program, params, masks=masks, assignment="cuda",
+                        device=device)
+
+    # 1. each bf16 form against its plain version, then timed
+    _, calls = served_bf16_calls(plan, frames_b)
+    rows = check_bf16_kernels(calls, device, timers, seed)
+
+    # 2. the captured cuda engine serves the 256 requests
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with AsyncAMCServeEngine(params, cfg, masks, backend="cuda",
+                             max_batch=BATCH, device=device) as engine:
+        futures = [engine.submit(frame) for frame in iq]
+        failed = 0
+        preds = np.full(REQUESTS, -1)
+        for i, f in enumerate(futures):
+            try:
+                preds[i] = f.result(timeout=600)
+            except Exception as e:  # noqa: BLE001 — counted, then gated
+                failed += 1
+                print(f"  bf16 request {i} failed: {e!r}")
+        stats = engine.stats.summary()
+        graphs = engine.get_version(engine.active_version).graphs
+        shapes = graphs.shapes() if graphs is not None else ()
+        replays = graphs.replays if graphs is not None else 0
+        per_replay = graphs.launches(shapes[0]) if shapes else {}
+    torch.cuda.synchronize()
+    served = launch_counts()
+    serve_s = time.perf_counter() - t0
+    print(f"  bf16 served: {REQUESTS} requests, {failed} failed, "
+          f"{stats['throughput_fps']:.1f} frames/s, p50 {stats['p50_ms']:.3f} "
+          f"ms, p99 {stats['p99_ms']:.3f} ms; {len(shapes)} graphs, {replays} "
+          f"replays, per replay {per_replay}; launches {served}")
+    if failed:
+        raise AssertionError(f"{failed} bf16 requests failed")
+    want_kernels = {"goap_conv_block_sparse", "lif_update_fused",
+                    "wm_fc_matmul_bf16", "lif_update_fused_bf16"}
+    expect_launches(served, want_kernels, "bf16 served path")
+    if graphs is None or set(per_replay) != want_kernels or any(
+            served[k] != n * (len(shapes) + replays) for k, n in per_replay.items()):
+        raise AssertionError("the bf16 cuda step did not run by graph replay "
+                             "alone")
+    with torch.inference_mode():
+        layered = torch.cat([plan.bound.batch(f) for f in frames])
+    n_pred = int((layered.argmax(-1).cpu().numpy() != preds).sum())
+    print(f"  bf16 served predictions vs the card's layered cuda path: "
+          f"{n_pred} of {REQUESTS} differ")
+    if n_pred or layered.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 served predictions: {n_pred} differ; "
+                             f"layered logits {layered.dtype}")
+
+    backends = bf16_card_vs_cpu(program, params, masks, frames_b, device)
+    bf16_fused_equals_upcast(program, params, masks, frames_b, device)
+    engines = bf16_engines(program, params, masks, iq[:BATCH], frames_b, device)
+    print("bf16_phase " + json.dumps({
+        "seconds": time.perf_counter() - t_phase, "serve_s": serve_s,
+        "requests": REQUESTS, "failed": failed,
+        "frames_per_s": stats["throughput_fps"], "p50_ms": stats["p50_ms"],
+        "p99_ms": stats["p99_ms"], "graphs": len(shapes), "replays": replays,
+        "per_replay": per_replay, "launches": served,
+        "card_vs_cpu": backends, "engines": engines, "card": nvidia_smi()}))
+    return rows, served
+
+
+def bf16_engines(program, params, masks, iq, frames_b, device) -> dict:
+    """An ``AsyncAMCServeEngine`` on the bf16 model for each backend and for
+    the default race (``auto``: dense, goap, cuda and cuda_fused timed on
+    one probe, the kernel backends raising nothing): each serves the batch
+    by graph replay with its plan's own predictions.  Returns the race's
+    timings and each engine's backend."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine, compile_plan
+
+    out = {}
+    for backend in BF16_BACKENDS + ("auto",):
+        with AsyncAMCServeEngine(params, program.cfg, masks, backend=backend,
+                                 max_batch=BATCH, device=device) as engine:
+            preds = serve_all(engine, iq)
+            graphs = engine.get_version(engine.active_version).graphs
+            chosen = engine.backend
+            report = engine.autotune.summary() if backend == "auto" else None
+        plan = compile_plan(program, params, masks=masks, assignment=chosen,
+                            device=device)
+        with torch.inference_mode():
+            want = plan.preferred_batch()(frames_b).argmax(-1).cpu().numpy()
+        n_diff = int((preds != want).sum())
+        out[backend] = {"served_by": chosen, "predictions_differ": n_diff}
+        if report is not None:
+            check_race_errors(report["errors"], "bf16 autotune race")
+            if report["fell_back"] or not {"cuda", "cuda_fused"} <= set(
+                    report["timings_ms"]):
+                raise AssertionError(f"bf16 race did not time both kernel "
+                                     f"backends: {report}")
+            out[backend]["timings_ms"] = report["timings_ms"]
+        print(f"  bf16 engine {backend}: served by {chosen}, "
+              f"{'captured' if graphs is not None else 'NOT captured'}, "
+              f"{n_diff} of {len(preds)} predictions differ from its plan")
+        if graphs is None or n_diff or not np.all(preds >= 0):
+            raise AssertionError(f"bf16 engine {backend}: not captured or "
+                                 "predictions differ from its plan")
+    return out
+
+
+def bf16_card_vs_cpu(program, params, masks, frames_b, device) -> dict:
+    """Each backend on the card against the same backend on the CPU (its
+    plain path) on one batch: predictions equal, logits within 1 bf16 ulp,
+    bf16 logits on the layered paths and f32 from the fused kernel."""
+    import torch
+
+    from repro_torch.api import compile_plan
+
+    backends = {}
+    for backend in BF16_BACKENDS:
+        card = compile_plan(program, params, masks=masks, assignment=backend,
+                            device=device)
+        cpu = compile_plan(program, params, masks=masks,
+                           assignment=backend, device="cpu")
+        paths = [("layered", card.bound.batch, cpu.bound.batch)]
+        if backend == "cuda_fused":
+            paths.append(("fused", card.batch, cpu.batch))
+        for path, on_card, on_cpu in paths:
+            with torch.inference_mode():
+                got = on_card(frames_b).cpu()
+                want = on_cpu(frames_b.cpu())
+            want_dtype = torch.float32 if path == "fused" else torch.bfloat16
+            ulps = float(bf16_ulps(got, want).max())
+            diff = float((got.float() - want.float()).abs().max())
+            n_pred = int((got.argmax(-1) != want.argmax(-1)).sum())
+            backends[f"{backend}_{path}"] = {"max_abs_diff": diff,
+                                             "max_ulp": ulps,
+                                             "predictions_differ": n_pred}
+            print(f"  bf16 {backend} {path}: card vs CPU max |diff| {diff} "
+                  f"({ulps} bf16 ulp), {n_pred} of {BATCH} predictions differ, "
+                  f"logits {got.dtype}")
+            if (got.dtype != want_dtype or want.dtype != want_dtype or ulps > 1.0
+                    or n_pred or not torch.isfinite(got.float()).all()):
+                raise AssertionError(f"bf16 {backend} {path}: card and CPU "
+                                     "disagree")
+
+    return backends
+
+
+def bf16_fused_equals_upcast(program, params, masks, frames_b, device) -> None:
+    """The fused kernel casts its operands: bf16 weights serve exactly the
+    f32 model on their upcast, under another plan digest."""
+    import torch
+
+    from repro_torch.api import compile_plan
+
+    up_params = {g: [{"w": lp["w"].float(), "lif": type(lp["lif"])(
+        *(a.float() for a in (lp["lif"].alpha_logit, lp["lif"].theta,
+                              lp["lif"].v_th)))} for lp in params[g]]
+        for g in ("conv", "fc")}
+    up_masks = {g: [m.float() for m in ms] for g, ms in masks.items()}
+    fused_bf = compile_plan(program, params, masks=masks,
+                            assignment="cuda_fused", device=device)
+    fused_up = compile_plan(program, up_params, masks=up_masks,
+                            assignment="cuda_fused", device=device)
+    if fused_bf.digest == fused_up.digest:
+        raise AssertionError("a bf16 model and its f32 upcast share a plan")
+    got, want = fused_bf.batch(frames_b), fused_up.batch(frames_b)
+    torch.cuda.synchronize()
+    print(f"  bf16 cuda_fused vs the f32 upcast: {got.dtype}, bit-equal "
+          f"{torch.equal(got, want)}")
+    if got.dtype != torch.float32 or not torch.equal(got, want):
+        raise AssertionError("the fused kernel on bf16 weights differs from "
+                             "the f32 model on their upcast")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port on one H100.")
+    ap.add_argument("--only", nargs="+", choices=("bf16", "cli_windows"),
+                    default=None, help="run only these phases (after the "
+                    "build) and print no result line")
+    ap.add_argument("--windows", type=int, default=5,
+                    help="1-replica CLI windows of each kind for cli_windows")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2849,7 +3450,24 @@ def main() -> int:
     from repro_torch.kernels.timing import call_ms, graph_ms
 
     device = torch.device("cuda", 0)
-    result = run(device, Timers(call_ms, graph_ms, host_timer))
+    timers = Timers(call_ms, graph_ms, host_timer)
+    if args.only:
+        from repro_torch.plan import PlanCache, set_default_cache
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        set_default_cache(PlanCache(disk_dir=""))
+        if "bf16" in args.only:
+            print("phase: bf16")
+            rows, _ = run_bf16_phase(device, timers)
+            print("bf16_kernels " + json.dumps(rows))
+        if "cli_windows" in args.only:
+            print("phase: cli_windows")
+            run_cli_windows(device, args.windows, unfrozen=True)
+        print(f"chip_smoke --only {' '.join(args.only)}: "
+              f"{time.perf_counter() - t_start:.3f} s in all")
+        return 0
+    result = run(device, timers)
     for row in result["kernels"]:
         print(f"  {row['name']}: {row['ms']:.4f} ms (one call "
               f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "

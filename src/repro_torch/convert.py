@@ -4,8 +4,9 @@ The reference draws its weights from jax PRNG keys, which torch cannot
 reproduce, so parity checks give both packages the same numbers: the
 reference's param pytree as nested numpy (each LIFParams as a dict
 ``{"alpha_logit", "theta", "v_th"}``) becomes the port's params here.
-The language-model zoo's trees (``init_lm`` / ``init_whisper`` params and
-decode states) cross as they are, each leaf keeping its dtype.
+Every leaf keeps its dtype: a bf16 SNN (the reference's ``init_snn(key,
+cfg, dtype=jnp.bfloat16)``) crosses as bf16, as do the language-model
+zoo's trees (``init_lm`` / ``init_whisper`` params and decode states).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ __all__ = ["params_from_numpy", "masks_from_numpy", "lm_params_from_numpy",
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    return _leaf_from_numpy(a, None)
 
 
 def _lif(d) -> LIFParams:
@@ -31,14 +32,15 @@ def _lif(d) -> LIFParams:
 
 
 def params_from_numpy(params_np: Dict[str, Any]) -> Dict[str, Any]:
-    """``{"conv"/"fc": [{"w", "lif": {...}}]}`` numpy -> port params (CPU)."""
+    """``{"conv"/"fc": [{"w", "lif": {...}}]}`` numpy -> port params (CPU),
+    each leaf in its dtype (float32 or bfloat16)."""
     return {group: [{"w": _t(layer["w"]), "lif": _lif(layer["lif"])}
                     for layer in params_np[group]]
             for group in ("conv", "fc")}
 
 
 def masks_from_numpy(masks_np: Dict[str, Any]) -> Dict[str, Any]:
-    """``{"conv"/"fc": [mask]}`` numpy -> port masks (CPU)."""
+    """``{"conv"/"fc": [mask]}`` numpy -> port masks (CPU), each in its dtype."""
     return {group: [_t(m) for m in masks_np[group]] for group in ("conv", "fc")}
 
 

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["normalize_iq", "sigma_delta_encode", "encode_frames"]
+__all__ = ["normalize_iq", "sigma_delta_encode", "sigma_delta_decode",
+           "encode_frames"]
 
 
 def normalize_iq(iq: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -32,6 +33,11 @@ def sigma_delta_encode(x: torch.Tensor, osr: int) -> torch.Tensor:
         y = (integ >= 0.5).to(x.dtype)
         bits.append(y)
     return torch.stack(bits)
+
+
+def sigma_delta_decode(bits: torch.Tensor) -> torch.Tensor:
+    """Low-pass (mean over the time axis 0) reconstruction of the rate."""
+    return bits.mean(dim=0)
 
 
 def encode_frames(iq: torch.Tensor, osr: int) -> torch.Tensor:

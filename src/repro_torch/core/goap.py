@@ -7,10 +7,22 @@ dimensions are carried through (the reference vmaps instead).
 
 ``build_shift_buffer`` gives X'(IC*KW, OI) with X'[ic*KW + ci, oi] =
 I[ic, oi + ci] (rows **ic-major**); the dense conv is ``W'(OC, IC*KW) @ X'``.
+
+Implementations, all equal to the dense oracle:
+
+* ``conv1d_dense_oracle`` — im2col matmul in the kernel's dtype (a bf16
+  kernel gives bf16 currents, the product taken in f32 and rounded once,
+  as XLA computes a bf16 dot: :func:`matmul_rounded`);
+* ``goap_conv_packed`` — the serving hot path (f32, as in the reference);
+* ``goap_conv_nnz`` — every non-zero weight adds ``w * EM`` to its
+  output row (gather + scatter-add, f32);
+* ``goap_conv_reference`` / ``goap_conv_reference_loop`` — Algorithm 1 in
+  numpy float64 (tests), the vectorized one bit-identical to the loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Union
 
 import numpy as np
@@ -18,8 +30,19 @@ import torch
 
 from .sparse_format import CooKernel
 
-__all__ = ["build_shift_buffer", "conv1d_dense_oracle", "PackedCoo",
-           "goap_pack", "goap_conv_packed"]
+__all__ = ["matmul_rounded", "build_shift_buffer", "conv1d_dense_oracle",
+           "PackedCoo", "goap_pack", "goap_conv_packed", "goap_conv_nnz",
+           "goap_conv_reference", "goap_conv_reference_loop"]
+
+
+def matmul_rounded(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as XLA computes a product of one 16-bit float dtype: in
+    f32, rounded once to that dtype (a bf16 matmul of the library may
+    reduce in bf16 on the card; this one never does).  Other dtypes are
+    a plain ``matmul``."""
+    if a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
+    return torch.matmul(a, b)
 
 
 def build_shift_buffer(ifm: torch.Tensor, kw: int) -> torch.Tensor:
@@ -37,7 +60,7 @@ def conv1d_dense_oracle(ifm: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor
     kw, ic, oc = kernel.shape
     x = build_shift_buffer(ifm, kw)
     w = kernel.permute(2, 1, 0).reshape(oc, ic * kw)   # W'
-    return torch.matmul(w, x.to(w.dtype))
+    return matmul_rounded(w, x.to(w.dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +73,11 @@ class PackedCoo:
     kw: int
     ic: int
     oc: int
+
+    @property
+    def s(self) -> int:
+        """Slots per output channel (the longest channel's nnz)."""
+        return int(self.w_pad.shape[1])
 
     def to(self, device) -> "PackedCoo":
         """The same layout as tensors on ``device`` (for the hot path)."""
@@ -87,3 +115,74 @@ def goap_conv_packed(ifm: torch.Tensor, pack: PackedCoo) -> torch.Tensor:
     x = build_shift_buffer(ifm, pack.kw).to(torch.float32)  # (..., K, OI)
     ems = x[..., row_pad, :]                                # (..., OC, S, OI)
     return torch.einsum("os,...osk->...ok", w_pad, ems)
+
+
+def goap_conv_nnz(ifm: torch.Tensor, coo: CooKernel) -> torch.Tensor:
+    """Vectorized GOAP on a pre-padded (..., IC, WI) IFM: every non-zero
+    weight w@(oc, ic, ci) adds ``w * I[ic, ci:ci+OI]`` (its enable map) to
+    output row oc, gathered and scatter-added in f32."""
+    wi = ifm.shape[-1]
+    oi = wi - coo.kw + 1
+    lead = ifm.shape[:-2]
+    if coo.nnz == 0:
+        return ifm.new_zeros(lead + (coo.oc, oi), dtype=torch.float32)
+    dev = ifm.device
+    w = torch.as_tensor(np.asarray(coo.data, dtype=np.float32), device=dev)
+    oc_idx = torch.as_tensor((coo.row_idx // coo.ic).astype(np.int64), device=dev)
+    ic_idx = torch.as_tensor((coo.row_idx % coo.ic).astype(np.int64), device=dev)
+    cols = (torch.as_tensor(coo.col_idx.astype(np.int64), device=dev)[:, None]
+            + torch.arange(oi, device=dev))                      # (nnz, OI)
+    ems = ifm[..., ic_idx[:, None], cols].to(torch.float32)      # (..., nnz, OI)
+    out = ifm.new_zeros(lead + (coo.oc, oi), dtype=torch.float32)
+    return out.index_add_(-2, oc_idx, w[:, None] * ems)
+
+
+@functools.lru_cache(maxsize=256)
+def _reference_index_table(row_bytes: bytes, col_bytes: bytes, nnz: int,
+                           kw: int, ic: int, wi: int):
+    """Gather table of the vectorized emulator, cached on the COO indices."""
+    row_idx = np.frombuffer(row_bytes, dtype=np.int32)
+    col_idx = np.frombuffer(col_bytes, dtype=np.int32)
+    oi = wi - kw + 1
+    oc_idx = (row_idx // ic).astype(np.int64)
+    ic_idx = (row_idx % ic).astype(np.int64)
+    flat = (ic_idx[:, None] * wi + col_idx[:, None].astype(np.int64)
+            + np.arange(oi, dtype=np.int64)[None, :])
+    return oc_idx, flat
+
+
+def goap_conv_reference(ifm: np.ndarray, coo: CooKernel) -> np.ndarray:
+    """Algorithm-1 emulation in numpy float64 (tests, small shapes):
+    ``np.add.at`` applies the contributions in COO order, so it equals
+    :func:`goap_conv_reference_loop` bit for bit."""
+    ifm = np.asarray(ifm)
+    icn, wi = ifm.shape
+    oi = wi - coo.kw + 1
+    out = np.zeros((coo.oc, oi), dtype=np.float64)
+    if coo.nnz == 0:
+        return out
+    oc_idx, flat = _reference_index_table(
+        np.ascontiguousarray(coo.row_idx, dtype=np.int32).tobytes(),
+        np.ascontiguousarray(coo.col_idx, dtype=np.int32).tobytes(),
+        coo.nnz, coo.kw, icn, wi)
+    gate = ifm.ravel()[flat] != 0                                # (nnz, OI)
+    np.add.at(out, oc_idx, np.asarray(coo.data, np.float64)[:, None] * gate)
+    return out
+
+
+def goap_conv_reference_loop(ifm: np.ndarray, coo: CooKernel) -> np.ndarray:
+    """The literal Algorithm-1 double loop (the bit-equality oracle of
+    :func:`goap_conv_reference`)."""
+    ifm = np.asarray(ifm)
+    icn, wi = ifm.shape
+    oi = wi - coo.kw + 1
+    out = np.zeros((coo.oc, oi), dtype=np.float64)
+    for n in range(coo.nnz):
+        oc = int(coo.row_idx[n]) // icn
+        ic = int(coo.row_idx[n]) % icn
+        ci = int(coo.col_idx[n])
+        w = float(coo.data[n])
+        for o in range(oi):              # enable-map iteration
+            if ifm[ic, o + ci] != 0:     # temporal-sparsity gate
+                out[oc, o] += w
+    return out

@@ -13,17 +13,25 @@ Heaviside step whose backward pass is the fast-sigmoid surrogate
 Rounding: eager torch rounds ``alpha * v`` and ``+ current`` separately
 (no fused multiply-add); the CUDA kernels write the same update with
 ``__fmul_rn``/``__fadd_rn`` so that kernel and plain version agree bit for
-bit on the card.
+bit on the card.  In bf16 every op rounds to bf16 on its own, which is
+what the reference computes on the CPU (under ``lax.scan`` and in its
+Pallas kernel's interpret mode alike; ``tests/test_torch_bf16.py``).
+
+Dtypes follow torch's promotion, which agrees with the reference's here:
+bf16 params (``init_snn(dtype=torch.bfloat16)``) against an f32 membrane
+give f32, and against a bf16 membrane bf16.  (A 0-d f32 tensor would not
+promote a bf16 one in torch, where jax promotes; none enters these ops.)
+The decay's value is the reference's too: :meth:`LIFParams.alpha_for`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = ["SURROGATE_SLOPE", "LIFParams", "init_lif_params", "spike",
-           "lif_step"]
+           "lif_step", "lif_unroll"]
 
 SURROGATE_SLOPE = 4.0  # k in 1 / (1 + k|u|)^2
 
@@ -58,7 +66,26 @@ class LIFParams:
 
     @property
     def alpha(self) -> torch.Tensor:
-        return torch.sigmoid(self.alpha_logit)
+        """sigmoid(alpha_logit) in the logit's dtype.  In bf16 it is the
+        reference's ``1 / (1 + exp(-x))`` with every op rounded to bf16
+        (``torch.sigmoid`` rounds once, which differs in about a third of
+        bf16 logits)."""
+        x = self.alpha_logit
+        if x.dtype == torch.bfloat16:
+            return 1.0 / (1.0 + torch.exp(-x))
+        return torch.sigmoid(x)
+
+    def alpha_for(self, dtype: torch.dtype) -> torch.Tensor:
+        """alpha as the reference applies it to a membrane of ``dtype``.
+
+        bf16 parameters against an f32 membrane are promoted inside the
+        reference's traced step, where XLA keeps the sigmoid's last divide
+        in f32: ``1 / bf16(1 + bf16(exp(-x)))`` unrounded.  Everywhere else
+        it is :attr:`alpha`."""
+        x = self.alpha_logit
+        if x.dtype == torch.bfloat16 and dtype == torch.float32:
+            return 1.0 / (1.0 + torch.exp(-x)).float()
+        return self.alpha
 
     def to(self, device) -> "LIFParams":
         return LIFParams(self.alpha_logit.to(device), self.theta.to(device),
@@ -78,6 +105,19 @@ def init_lif_params(shape: Tuple[int, ...], alpha: float = 0.9,
 def lif_step(v: torch.Tensor, current: torch.Tensor, params: LIFParams
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LIF update; returns ``(v_next, s)``.  Params broadcast."""
-    v_acc = params.alpha * v + current
+    v_acc = params.alpha_for(v.dtype) * v + current
     s = spike(v_acc - params.v_th)
     return v_acc - params.theta * s, s
+
+
+def lif_unroll(currents: torch.Tensor, params: LIFParams,
+               v0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LIF over a leading time axis: currents (T, ...) -> (spikes (T, ...),
+    final v); the state starts at zero in the currents' dtype."""
+    v = torch.zeros_like(currents[0]) if v0 is None else v0
+    spikes = []
+    for c in currents:
+        v, s = lif_step(v, c, params)
+        spikes.append(s)
+    return torch.stack(spikes), v

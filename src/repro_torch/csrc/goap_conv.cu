@@ -263,3 +263,133 @@ extern "C" int goap_conv_strips_f32(const float* blocks, const int* cols,
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 form.
+//
+// The reference's kernel follows its operands' dtype: with bf16 tiles and
+// X' every tile slot's dot (BO x BK by BK x OI) is accumulated in f32,
+// rounded to bf16 (preferred_element_type=out.dtype) and added to the bf16
+// output with one more rounding, slot by slot in list order.  The served
+// conv never reaches this form (kernels/ops.py casts its operands to f32,
+// as the reference's ops.py does); it is the kernel's contract
+// (tests/test_kernels.py).  Plain version:
+// kernels/goap_conv.py::goap_conv_block_sparse_bf16_ref.
+//
+// Design: mma.sync m16n8k16 (mma_bf16.cuh) with OI on M, the oc-tile's BO
+// rows on N (the reference's BO = 8 is one n8 fragment) and BK on K in k16
+// steps.  A block of 4 warps owns one oc-tile x 64 OI columns (16 a warp).
+// For each tile slot it stages the tile (BO x BK, k contiguous) and the
+// slot's BK rows of X' transposed to (64 columns, BK), both zero-padded to
+// multiples of 8 rows and 16 k in shared memory, so a padded row or k adds
+// an exact zero; then every warp runs BK/16 k steps per n8 fragment into
+// f32 and rounds: out = bf16(out + bf16(dot)).  Shared rows are padded by
+// 8 values (conflict-free fragment loads).  A k-tile index outside X'
+// makes the oc-tile's rows NaN and is never read, as in the f32 form.
+// Bound on the H100: bytes of X' and of the output.
+// ---------------------------------------------------------------------------
+
+#include <cuda_bf16.h>
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+constexpr int BF_COLS = 64;              // OI columns per block (4 warps x m16)
+constexpr int BF_THREADS = 128;
+constexpr int BF_MAX_N = 4;              // n8 fragments: BO up to 32
+
+__global__ void __launch_bounds__(BF_THREADS)
+goap_conv_bf16_kernel(const __nv_bfloat16* __restrict__ blocks, const int* __restrict__ cols,
+                      const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
+                      int max_tiles, int bo, int bk, int n_k_tiles, int oi) {
+    extern __shared__ __align__(16) __nv_bfloat16 bf_smem[];
+    const int bkp = (bk + 15) & ~15, bop = (bo + 7) & ~7, ld = bkp + 8;
+    __nv_bfloat16* xs = bf_smem;                     // [64 columns][ld]
+    __nv_bfloat16* ws = xs + BF_COLS * ld;           // [bop rows][ld]
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3, n_frag = bop >> 3;
+    const int r = blockIdx.y, o0 = blockIdx.x * BF_COLS;
+    const int* tile_cols = cols + (size_t)r * max_tiles;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+
+    bool bad = false;
+    for (int t = 0; t < max_tiles; ++t) bad |= tile_cols[t] < 0 || tile_cols[t] >= n_k_tiles;
+
+    float acc[BF_MAX_N][4];                          // bf16 values
+#pragma unroll
+    for (int j = 0; j < BF_MAX_N; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+
+    for (int t = 0; t < max_tiles && !bad; ++t) {
+        const __nv_bfloat16* tile = blocks + ((size_t)r * max_tiles + t) * bo * bk;
+        const __nv_bfloat16* xk = x + (size_t)tile_cols[t] * bk * oi;
+        for (int e = tid; e < bop * bkp; e += BF_THREADS) {
+            const int n = e / bkp, k = e % bkp;
+            ws[n * ld + k] = (n < bo && k < bk) ? tile[n * bk + k] : zero;
+        }
+        for (int e = tid; e < bkp * BF_COLS; e += BF_THREADS) {
+            const int k = e / BF_COLS, m = e % BF_COLS;
+            const int o = o0 + m;
+            xs[m * ld + k] = (k < bk && o < oi) ? xk[(size_t)k * oi + o] : zero;
+        }
+        __syncthreads();
+        float dot[BF_MAX_N][4];
+#pragma unroll
+        for (int j = 0; j < BF_MAX_N; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dot[j][c] = 0.0f;
+        for (int kk = 0; kk < bkp; kk += 16) {
+            const __nv_bfloat16* ap = xs + (warp * 16 + g) * ld + kk + 2 * q;
+            const unsigned a[4] = {repro::ld_pair(ap), repro::ld_pair(ap + 8 * ld),
+                                   repro::ld_pair(ap + 8), repro::ld_pair(ap + 8 * ld + 8)};
+#pragma unroll
+            for (int j = 0; j < BF_MAX_N; ++j) {
+                if (j < n_frag) {
+                    const __nv_bfloat16* bp = ws + (j * 8 + g) * ld + kk + 2 * q;
+                    const unsigned b[2] = {repro::ld_pair(bp), repro::ld_pair(bp + 8)};
+                    repro::mma_bf16_16816(dot[j], a, b);
+                }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < BF_MAX_N; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[j][c] = repro::add_tile_bf16(acc[j][c], dot[j][c]);
+        __syncthreads();                             // staging free for the next slot
+    }
+    const __nv_bfloat16 nan = __float2bfloat16_rn(__int_as_float(0x7fc00000));
+#pragma unroll
+    for (int j = 0; j < BF_MAX_N; ++j) {
+        if (j >= n_frag) break;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int o = o0 + warp * 16 + g + (c >> 1) * 8;   // M: OI column
+            const int n = j * 8 + 2 * q + (c & 1);              // N: row of the oc-tile
+            if (o < oi && n < bo)
+                out[((size_t)r * bo + n) * oi + o] = bad ? nan : __float2bfloat16_rn(acc[j][c]);
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int goap_conv_bf16(const __nv_bfloat16* blocks, const int* cols,
+                              const __nv_bfloat16* x, __nv_bfloat16* out, int n_oc_tiles,
+                              int max_tiles, int bo, int bk, int n_k_tiles, int oi,
+                              void* stream) {
+    if (n_oc_tiles <= 0 || n_oc_tiles > 65535 || max_tiles < 0 || bo <= 0 ||
+        bo > 8 * BF_MAX_N || bk <= 0 || oi <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int bkp = (bk + 15) & ~15, bop = (bo + 7) & ~7;
+    const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BF_COLS + bop) * (bkp + 8);
+    if (smem > (size_t)MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaFuncSetAttribute(
+        goap_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((oi + BF_COLS - 1) / BF_COLS, n_oc_tiles);
+    goap_conv_bf16_kernel<<<grid, BF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+        blocks, cols, x, out, max_tiles, bo, bk, n_k_tiles, oi);
+    return static_cast<int>(cudaGetLastError());
+}

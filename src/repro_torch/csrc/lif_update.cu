@@ -45,3 +45,51 @@ extern "C" int lif_update_fused_f32(const float* cur, const float* v0,
         cur, v0, alpha, theta, vth, spikes, vfin, T, n);
     return static_cast<int>(cudaGetLastError());
 }
+
+// bf16 form: the state lives in the currents' dtype, as the reference's
+// scratch does, and every operation rounds to bf16 as the reference's
+// kernel body does in interpret mode (each op of `v * alpha + I_t` and of
+// `v - theta * s` rounded on its own; tests/test_torch_bf16.py holds the
+// plain version to it bit for bit).  In f32, the product of two bf16
+// values is exact, so __fmul_rn then one rounding to bf16 is bf16's own
+// product; a sum or difference is taken in f32 and rounded once, as torch
+// and XLA compute a bf16 add.  s = 0 subtracts an exact zero, so only a
+// firing neuron rounds there.
+#include <cuda_bf16.h>
+
+namespace {
+
+__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+
+__global__ void __launch_bounds__(THREADS)
+lif_update_bf16_kernel(const __nv_bfloat16* __restrict__ cur, const __nv_bfloat16* __restrict__ v0,
+                       const __nv_bfloat16* __restrict__ alpha,
+                       const __nv_bfloat16* __restrict__ theta,
+                       const __nv_bfloat16* __restrict__ vth, __nv_bfloat16* __restrict__ spikes,
+                       __nv_bfloat16* __restrict__ vfin, int T, int n) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const float a = __bfloat162float(alpha[i]), th = __bfloat162float(theta[i]),
+                vt = __bfloat162float(vth[i]);
+    const __nv_bfloat16 one = __float2bfloat16_rn(1.0f), zero = __float2bfloat16_rn(0.0f);
+    float v = __bfloat162float(v0[i]);
+    for (int t = 0; t < T; ++t) {
+        v = bf(__fadd_rn(bf(__fmul_rn(v, a)), __bfloat162float(cur[(size_t)t * n + i])));
+        const bool fire = v > vt;
+        spikes[(size_t)t * n + i] = fire ? one : zero;
+        if (fire) v = bf(__fsub_rn(v, th));
+    }
+    vfin[i] = __float2bfloat16_rn(v);
+}
+
+}  // namespace
+
+extern "C" int lif_update_fused_bf16(const __nv_bfloat16* cur, const __nv_bfloat16* v0,
+                                     const __nv_bfloat16* alpha, const __nv_bfloat16* theta,
+                                     const __nv_bfloat16* vth, __nv_bfloat16* spikes,
+                                     __nv_bfloat16* vfin, int T, int n, void* stream) {
+    const int grid = (n + THREADS - 1) / THREADS;
+    lif_update_bf16_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        cur, v0, alpha, theta, vth, spikes, vfin, T, n);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -210,3 +210,110 @@ extern "C" int wm_fc_chunked_f32(const float* s, const float* w, float* out,
         s, w, out, batch, din, dout, rows, out_tile);
     return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------------
+// bf16 form.
+//
+// The reference's kernel follows its operands' dtype: with bf16 weights
+// (and the spikes cast to them) each 128-input tile's dot is accumulated
+// in f32, rounded to bf16 (preferred_element_type=out.dtype) and added to
+// the bf16 output with one more rounding.  One bf16 matmul rounds once, so
+// it computes another function; the plain version is
+// kernels/wm_fc.py::wm_fc_matmul_bf16_ref.
+//
+// Design: mma.sync m16n8k16 (mma_bf16.cuh) with batch rows on M, outputs
+// on N and inputs on K.  A block of 4 warps owns 64 batch rows x 32
+// outputs; each warp 16 rows x 4 n8 fragments.  Per 128-input tile the
+// block stages its spikes (64 x 128, row-major) and its weights transposed
+// to (32 outputs, 128 inputs) in shared memory, zero-filled past B, IN and
+// OUT (OUT = 11 pads N to 16 with zeros), runs 8 k16 steps into f32
+// fragments, then rounds: out = bf16(out + bf16(dot)).  Rows are padded by
+// 8 values, so the fragment loads of a warp hit 32 distinct banks.
+// Bound on the H100: bytes (the products are a few MFLOP for tensor cores
+// that do 989 TFLOP/s); this first form stages with plain loads.
+// ---------------------------------------------------------------------------
+
+#include <cuda_bf16.h>
+
+#include "mma_bf16.cuh"
+
+namespace {
+
+constexpr int BF_ROWS = 64;              // batch rows per block (4 warps x 16)
+constexpr int BF_OUTS = 32;              // outputs per block (4 n8 fragments)
+constexpr int BF_TILE = 128;             // inputs per reference tile (block_in)
+constexpr int BF_LD = BF_TILE + 8;       // bf16 values per shared row
+constexpr int BF_THREADS = 128;
+
+__global__ void __launch_bounds__(BF_THREADS)
+wm_fc_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ w,
+                  __nv_bfloat16* __restrict__ out, int batch, int din, int dout) {
+    __shared__ __align__(16) __nv_bfloat16 as[BF_ROWS * BF_LD];   // [row][input]
+    __shared__ __align__(16) __nv_bfloat16 bs[BF_OUTS * BF_LD];   // [output][input]
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int row0 = blockIdx.x * BF_ROWS, col0 = blockIdx.y * BF_OUTS;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    float acc[4][4];                         // bf16 values: [n fragment][c]
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+
+    for (int i0 = 0; i0 < din; i0 += BF_TILE) {
+        for (int e = tid; e < BF_ROWS * BF_TILE; e += BF_THREADS) {
+            const int r = e / BF_TILE, k = e % BF_TILE;
+            const int gr = row0 + r, gk = i0 + k;
+            as[r * BF_LD + k] = (gr < batch && gk < din) ? s[(size_t)gr * din + gk] : zero;
+        }
+        for (int e = tid; e < BF_OUTS * BF_TILE; e += BF_THREADS) {
+            const int k = e / BF_OUTS, n = e % BF_OUTS;
+            const int gk = i0 + k, gn = col0 + n;
+            bs[n * BF_LD + k] = (gk < din && gn < dout) ? w[(size_t)gk * dout + gn] : zero;
+        }
+        __syncthreads();
+        float dot[4][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dot[j][c] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < BF_TILE; kk += 16) {
+            const __nv_bfloat16* ap = as + (warp * 16 + g) * BF_LD + kk + 2 * q;
+            const unsigned a[4] = {repro::ld_pair(ap), repro::ld_pair(ap + 8 * BF_LD),
+                                   repro::ld_pair(ap + 8), repro::ld_pair(ap + 8 * BF_LD + 8)};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const __nv_bfloat16* bp = bs + (j * 8 + g) * BF_LD + kk + 2 * q;
+                const unsigned b[2] = {repro::ld_pair(bp), repro::ld_pair(bp + 8)};
+                repro::mma_bf16_16816(dot[j], a, b);
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[j][c] = repro::add_tile_bf16(acc[j][c], dot[j][c]);
+        __syncthreads();                     // the tiles are free for the next inputs
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int r = row0 + warp * 16 + g + (c >> 1) * 8;
+            const int n = col0 + j * 8 + 2 * q + (c & 1);
+            if (r < batch && n < dout) out[(size_t)r * dout + n] = __float2bfloat16_rn(acc[j][c]);
+        }
+    }
+}
+
+}  // namespace
+
+extern "C" int wm_fc_bf16(const __nv_bfloat16* s, const __nv_bfloat16* w, __nv_bfloat16* out,
+                          int batch, int din, int dout, void* stream) {
+    if (batch <= 0 || din < 0 || dout <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    const dim3 grid((batch + BF_ROWS - 1) / BF_ROWS, (dout + BF_OUTS - 1) / BF_OUTS);
+    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    wm_fc_bf16_kernel<<<grid, BF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        s, w, out, batch, din, dout);
+    return static_cast<int>(cudaGetLastError());
+}

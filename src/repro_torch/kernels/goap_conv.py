@@ -17,6 +17,15 @@ being read (no host synchronisation).  The kernel equals
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 :func:`goap_conv_block_sparse_ref` (the port of ``repro/kernels/ref.py``).
+
+bf16 tiles and X' run the reference's bf16 form,
+:func:`goap_conv_block_sparse_bf16` (its own launch counter;
+``goap_conv_bf16`` in ``csrc/goap_conv.cu``, on the tensor cores): each
+tile slot's dot accumulated in f32, rounded to bf16 and added to the bf16
+output with one more rounding, slot by slot
+(:func:`goap_conv_block_sparse_bf16_ref`).  The served conv never reaches
+it (``ops.goap_conv_op`` casts to f32, as the reference's does); it is the
+kernel's contract.
 """
 from __future__ import annotations
 
@@ -27,10 +36,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.goap import matmul_rounded
 from repro_torch.kernels.launches import count_launch
 
 __all__ = ["ConvLaunch", "plan_goap_conv_launch", "goap_conv_block_sparse",
            "goap_conv_block_sparse_ref", "goap_conv_block_sparse_inorder",
+           "goap_conv_block_sparse_bf16", "goap_conv_block_sparse_bf16_ref",
            "dense_of_blocks"]
 
 MAX_SMEM = 232_448        # shared memory a block may use on the H100 (bytes)
@@ -40,6 +51,8 @@ N_SMS = 132               # SMs of an H100 SXM (the wrapper asks the card)
 STRIP = 256               # widest strip of X' columns per block
 MIN_STRIP = 32
 MAX_THREADS = 256
+DTYPES = (torch.float32, torch.bfloat16)
+BF16_MAX_BO = 32          # csrc/goap_conv.cu: BO up to 4 n8 fragments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +127,10 @@ def plan_goap_conv_launch(n_oc_tiles: int, max_tiles: int, bo: int, bk: int,
 
 def goap_conv_block_sparse_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
                                x: torch.Tensor) -> torch.Tensor:
-    """out[r*BO:(r+1)*BO] = sum_t blocks[r, t] @ x[cols[r,t]*BK : +BK]."""
+    """out[r*BO:(r+1)*BO] = sum_t blocks[r, t] @ x[cols[r,t]*BK : +BK]
+    (bf16 operands: :func:`goap_conv_block_sparse_bf16_ref`)."""
+    if blocks.dtype == torch.bfloat16:
+        return goap_conv_block_sparse_bf16_ref(blocks, block_cols, x)
     n_oc_tiles, max_tiles, bo, bk = blocks.shape
     xt = x.reshape(-1, bk, x.shape[1])                  # (n_k_tiles, BK, OI)
     tiles = xt[block_cols.long()]                       # (R, MT, BK, OI)
@@ -148,6 +164,25 @@ def goap_conv_block_sparse_inorder(blocks: torch.Tensor,
     return acc.reshape(n_oc_tiles * bo, oi)
 
 
+def goap_conv_block_sparse_bf16_ref(blocks: torch.Tensor,
+                                    block_cols: torch.Tensor,
+                                    x: torch.Tensor) -> torch.Tensor:
+    """The reference's bf16 form: per tile slot, in list order, an f32 dot
+    rounded to bf16 and added to the bf16 output with one more rounding.
+    A k-tile index outside X' makes its oc-tile's rows NaN (as the kernel)."""
+    n_oc_tiles, max_tiles, bo, bk = blocks.shape
+    n_k, oi = x.shape[0] // bk, x.shape[1]
+    cols = block_cols.long()
+    bad = ((cols < 0) | (cols >= n_k)).any(1)
+    out = blocks.new_zeros((n_oc_tiles, bo, oi))
+    if n_k:
+        xt = x.reshape(n_k, bk, oi).to(blocks.dtype)[cols.clamp(0, n_k - 1)]
+        for t in range(max_tiles):
+            out = out + matmul_rounded(blocks[:, t], xt[:, t])
+    out = torch.where(bad[:, None, None], float("nan"), out)
+    return out.reshape(n_oc_tiles * bo, oi)
+
+
 def dense_of_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
                     k_pad: int) -> torch.Tensor:
     """The dense padded W' (n_oc_tiles * BO, K_pad) that block-sparse tiles
@@ -163,8 +198,10 @@ def dense_of_blocks(blocks: torch.Tensor, block_cols: torch.Tensor,
 
 def _check(blocks, block_cols, x, block_oc, block_k):
     for name, a in (("blocks", blocks), ("x", x)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype not in DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {a.dtype}")
+    if x.dtype != blocks.dtype:
+        raise TypeError(f"x is {x.dtype}, blocks {blocks.dtype}")
     if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (block_oc, block_k):
         raise ValueError(f"blocks {tuple(blocks.shape)} do not hold "
                          f"({block_oc}, {block_k}) tiles")
@@ -176,17 +213,21 @@ def _check(blocks, block_cols, x, block_oc, block_k):
                          f"block_k={block_k}")
     if not (blocks.device == block_cols.device == x.device):
         raise ValueError("blocks, block_cols and x must share a device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
 
 
 def goap_conv_block_sparse(blocks: torch.Tensor, block_cols: torch.Tensor,
                            x: torch.Tensor, *, block_oc: int, block_k: int
                            ) -> torch.Tensor:
-    """Currents (n_oc_tiles * BO, OI) = block-sparse W' @ X'."""
+    """Currents (n_oc_tiles * BO, OI) = block-sparse W' @ X', in the
+    operands' dtype (float32, or bfloat16: :func:`goap_conv_block_sparse_bf16`)."""
     _check(blocks, block_cols, x, block_oc, block_k)
+    if blocks.dtype == torch.bfloat16:
+        return goap_conv_block_sparse_bf16(blocks, block_cols, x,
+                                           block_oc=block_oc, block_k=block_k)
     if x.device.type == "cpu":
         return goap_conv_block_sparse_ref(blocks, block_cols, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     return _launch(blocks, block_cols, x, plan_goap_conv_launch(
         *blocks.shape, x.shape[0], x.shape[1], n_sms=_n_sms(x.device)))
 
@@ -220,3 +261,39 @@ def _launch(blocks, block_cols, x, plan: ConvLaunch) -> torch.Tensor:
 
 
 goap_conv_block_sparse.launches = 0
+
+
+def goap_conv_block_sparse_bf16(blocks: torch.Tensor, block_cols: torch.Tensor,
+                                x: torch.Tensor, *, block_oc: int, block_k: int
+                                ) -> torch.Tensor:
+    """The bf16 form: bf16 tiles and X' -> bf16 currents (n_oc_tiles * BO, OI)."""
+    _check(blocks, block_cols, x, block_oc, block_k)
+    if blocks.dtype != torch.bfloat16:
+        raise TypeError(f"blocks must be bfloat16, got {blocks.dtype}")
+    if x.device.type == "cpu":
+        return goap_conv_block_sparse_bf16_ref(blocks, block_cols, x)
+    n_oc_tiles, max_tiles, bo, bk = blocks.shape
+    if bo > BF16_MAX_BO:
+        raise ValueError(f"block_oc {bo} > {BF16_MAX_BO}: the bf16 kernel "
+                         "holds at most 4 n8 fragments")
+    from repro_torch.kernels.build import check, kernel_function
+
+    oi = x.shape[1]
+    blocks = blocks.contiguous()
+    cols = block_cols.to(torch.int32).contiguous()
+    x = x.contiguous()
+    out = torch.empty((n_oc_tiles * bo, oi), dtype=torch.bfloat16,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = kernel_function("goap_conv_bf16", [vp] * 4 + [ci] * 6 + [vp])
+    err = fn(blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+             n_oc_tiles, max_tiles, bo, bk, x.shape[0] // bk, oi,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    check(err, "goap_conv_bf16")
+    count_launch(goap_conv_block_sparse_bf16)
+    return out
+
+
+goap_conv_block_sparse_bf16.launches = 0

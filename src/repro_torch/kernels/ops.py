@@ -8,6 +8,12 @@ into the OI axis of X', the FC into its batch rows and the LIF into its
 neuron axis, so a whole batch (or a whole T x batch sequence) is one
 launch.  They run wherever their input lies (kernel on the card, plain
 version on the CPU).
+
+Dtypes are the reference's: the conv casts its operands to f32 (as
+``repro/kernels/ops.py`` does), the FC runs in the weights' dtype with the
+spikes cast to it, and the LIF runs in the currents' dtype with the
+parameters cast to it where that is exact (bf16 parameters against f32
+currents: the reference promotes them, which is the same values).
 """
 from __future__ import annotations
 
@@ -60,26 +66,36 @@ def goap_conv_op(ifm: torch.Tensor, bs: BlockSparseKernel) -> torch.Tensor:
 
 
 def wm_fc_op(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """(..., IN) binary @ (IN, OUT) masked -> (..., OUT)."""
+    """(..., IN) binary @ (IN, OUT) masked -> (..., OUT) in the weights'
+    dtype (the spikes cast to it, as the reference's graph casts them)."""
     lead = spikes.shape[:-1]
-    out = wm_fc_matmul(spikes.reshape(-1, spikes.shape[-1]), weights)
+    s = spikes.reshape(-1, spikes.shape[-1]).to(weights.dtype)
+    out = wm_fc_matmul(s, weights)
     return out.reshape(*lead, weights.shape[1])
 
 
 def lif_op(currents: torch.Tensor, params: LIFParams,
            v0: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused LIF over time for any neuron shape: (T, ...) -> (spikes, v_fin)."""
+    """Fused LIF over time for any neuron shape: (T, ...) -> (spikes, v_fin),
+    in the currents' dtype.  Parameters wider than the currents (f32
+    against bf16 currents: the reference would round once per step there)
+    are refused."""
     t = currents.shape[0]
     neuron_shape = currents.shape[1:]
     cur = currents.reshape(t, -1)
     n = cur.shape[1]
 
     def full(p):
-        return torch.broadcast_to(p, neuron_shape).reshape(-1).contiguous()
+        if p.dtype != cur.dtype and not (cur.dtype == torch.float32
+                                         and p.dtype == torch.bfloat16):
+            raise TypeError(f"LIF parameters in {p.dtype} against "
+                            f"{cur.dtype} currents")
+        return torch.broadcast_to(p.to(cur.dtype), neuron_shape
+                                  ).reshape(-1).contiguous()
 
     v0f = (torch.zeros((n,), dtype=cur.dtype, device=cur.device)
-           if v0 is None else v0.reshape(-1))
-    spikes, v_fin = lif_update_fused(cur, v0f, full(params.alpha),
+           if v0 is None else v0.reshape(-1).to(cur.dtype))
+    spikes, v_fin = lif_update_fused(cur, v0f, full(params.alpha_for(cur.dtype)),
                                      full(params.theta), full(params.v_th))
     return spikes.reshape((t,) + neuron_shape), v_fin.reshape(neuron_shape)

@@ -13,7 +13,10 @@ paper model's Σ-Δ frames at batch 64 and 1 over every cluster size,
 thread count and FC residency the planner can lay out.  Every plan's output is first held bit
 for bit to the in-order version (the plain version for the whole-network
 kernel).  Prints one JSON line per plan, the planner's own choice marked
-``"default": true``.  Needs a CUDA device.
+``"default": true``.  ``--kernels bf16`` times the three bf16 forms (one
+launch shape each) at the same shapes with bf16 weights, each held bit for
+bit to its plain version, beside ``torch.matmul`` in bf16 for the two
+products.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sparse_format import block_sparse_from_dense
-from repro_torch.kernels import goap_conv, stream_fused, wm_fc
+from repro_torch.kernels import goap_conv, lif_update, stream_fused, wm_fc
 from repro_torch.kernels.timing import graph_ms
 
 # (kw, ic, oc, W) of the paper's convs and (IN, OUT) of its FCs
@@ -148,7 +151,58 @@ def sweep_fused(rng, device, batches=(64, 1)):
                         stack, frames, plan=launch))}))
 
 
-SWEEPS = {"conv": sweep_conv, "fc": sweep_fc, "fused": sweep_fused}
+def sweep_bf16(rng, device):
+    bf16 = torch.bfloat16
+    for layer, (kw, ic, oc, w) in enumerate(CONVS):
+        k = ((rng.random((kw, ic, oc)) < 0.5)
+             * rng.normal(size=(kw, ic, oc))).astype(np.float32)
+        bs = block_sparse_from_dense(k, block_oc=8, block_k=32)
+        blocks = torch.as_tensor(bs.blocks, device=device).to(bf16)
+        cols = torch.as_tensor(bs.block_cols, device=device)
+        x = torch.as_tensor(rng.random((bs.padded_k, ROWS * w)) < 0.5,
+                            device=device).to(bf16)
+        _bf16_row(lambda: goap_conv.goap_conv_block_sparse_bf16(
+                      blocks, cols, x, block_oc=8, block_k=32),
+                  goap_conv.goap_conv_block_sparse_bf16_ref(blocks, cols, x),
+                  dict(kernel="goap_conv_block_sparse_bf16",
+                       layer=f"conv{layer + 1}", shape=[*blocks.shape, *x.shape]),
+                  goap_conv.dense_of_blocks(blocks, cols, x.shape[0]), x)
+    for layer, (din, dout) in enumerate(FCS):
+        s = torch.as_tensor(rng.random((ROWS, din)) < 0.5, device=device).to(bf16)
+        w = torch.as_tensor((rng.random((din, dout)) < 0.5)
+                            * rng.normal(size=(din, dout)), device=device).to(bf16)
+        _bf16_row(lambda: wm_fc.wm_fc_matmul_bf16(s, w),
+                  wm_fc.wm_fc_matmul_bf16_ref(s, w),
+                  dict(kernel="wm_fc_matmul_bf16", layer=f"fc{layer + 1}",
+                       shape=[ROWS, din, dout]), s, w)
+    for layer, (_, dout) in enumerate(FCS):
+        n = 64 * dout
+        args = [torch.as_tensor(a, device=device).to(bf16) for a in (
+            rng.normal(size=(8, n)), np.zeros(n), np.full(n, 0.9),
+            np.ones(n), np.ones(n))]
+        _bf16_row(lambda: lif_update.lif_update_fused_bf16(*args),
+                  lif_update.lif_update_fused_ref(*args),
+                  dict(kernel="lif_update_fused_bf16", layer=f"fc{layer + 1}",
+                       shape=[8, n]))
+
+
+def _bf16_row(run, want, base, *library):
+    """Hold ``run()`` bit for bit to ``want``, then print its device ms
+    (and that of ``torch.matmul`` on ``library``'s two operands)."""
+    got = run()
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    if not all(torch.equal(g, w) for g, w in zip(outs, wants)):
+        raise AssertionError(f"{base} differs from the plain version")
+    if library:
+        a, b = library
+        print(json.dumps({**base, "library": "torch.matmul bf16",
+                          "ms": graph_ms(lambda: torch.matmul(a, b))}))
+    print(json.dumps({**base, "ms": graph_ms(run)}))
+
+
+SWEEPS = {"conv": sweep_conv, "fc": sweep_fc, "fused": sweep_fused,
+          "bf16": sweep_bf16}
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,14 @@ bit.
 
 A CUDA tensor launches the kernel; a CPU tensor runs the plain version
 :func:`wm_fc_matmul_ref`.
+
+With bf16 weights :func:`wm_fc_matmul` runs the reference's bf16 form,
+:func:`wm_fc_matmul_bf16` (its own launch counter): the spikes are cast to
+the weights' dtype, each 128-input tile's dot is accumulated in f32 and
+rounded to bf16, and the tiles are summed in bf16, one rounding each
+(:func:`wm_fc_matmul_bf16_ref`, the plain version).  The kernel
+(``wm_fc_bf16`` in ``csrc/wm_fc.cu``) runs the tiles' dots on the tensor
+cores (``mma.sync`` m16n8k16, f32 accumulators).
 """
 from __future__ import annotations
 
@@ -24,16 +32,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.goap import matmul_rounded
 from repro_torch.kernels.launches import count_launch
 
 __all__ = ["FCLaunch", "plan_wm_fc_launch", "wm_fc_matmul", "wm_fc_matmul_ref",
-           "wm_fc_matmul_inorder"]
+           "wm_fc_matmul_inorder", "wm_fc_matmul_bf16", "wm_fc_matmul_bf16_ref"]
 
 MAX_SMEM = 232_448        # shared memory a block may use on the H100 (bytes)
 MAX_THREADS = 256
 ROWS = 16                 # batch rows per block (at least one warp's worth)
 CHUNK = 128               # inputs per shared-memory chunk (as csrc/wm_fc.cu)
 MAX_GRID_Y = 65_535       # output tiles lie on grid y
+BF16_TILE = 128           # inputs per reference tile (wm_fc.py block_in)
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +95,21 @@ def plan_wm_fc_launch(batch: int, din: int, dout: int, *,
 
 
 def wm_fc_matmul_ref(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Plain version: the f32 product, or the bf16 form's tile sums."""
+    if weights.dtype == torch.bfloat16:
+        return wm_fc_matmul_bf16_ref(spikes, weights)
     return spikes.to(weights.dtype) @ weights
+
+
+def wm_fc_matmul_bf16_ref(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The reference's bf16 form: per 128-input tile an f32 dot rounded to
+    bf16, added to the bf16 output with one more rounding."""
+    s = spikes.to(weights.dtype)
+    out = weights.new_zeros((s.shape[0], weights.shape[1]))
+    for i0 in range(0, s.shape[1], BF16_TILE):
+        out = out + matmul_rounded(s[:, i0:i0 + BF16_TILE],
+                                   weights[i0:i0 + BF16_TILE])
+    return out
 
 
 def wm_fc_matmul_inorder(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -101,20 +126,28 @@ def wm_fc_matmul_inorder(spikes: torch.Tensor, weights: torch.Tensor) -> torch.T
     return acc
 
 
-def wm_fc_matmul(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """spikes (B, IN) binary @ weights (IN, OUT) masked -> (B, OUT)."""
+def _check(spikes, weights) -> None:
     for name, a in (("spikes", spikes), ("weights", weights)):
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype not in DTYPES:
+            raise TypeError(f"{name} must be float32 or bfloat16, got {a.dtype}")
     if spikes.dim() != 2 or weights.dim() != 2 or spikes.shape[1] != weights.shape[0]:
         raise ValueError(f"cannot multiply {tuple(spikes.shape)} by "
                          f"{tuple(weights.shape)}")
     if spikes.device != weights.device:
         raise ValueError("spikes and weights must share a device")
+    if spikes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {spikes.device}")
+
+
+def wm_fc_matmul(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """spikes (B, IN) binary @ weights (IN, OUT) masked -> (B, OUT), in the
+    weights' dtype (float32, or bfloat16: :func:`wm_fc_matmul_bf16`)."""
+    _check(spikes, weights)
+    if weights.dtype == torch.bfloat16:
+        return wm_fc_matmul_bf16(spikes, weights)
+    spikes = spikes.to(weights.dtype)
     if spikes.device.type == "cpu":
         return wm_fc_matmul_ref(spikes, weights)
-    if spikes.device.type != "cuda":
-        raise ValueError(f"unsupported device {spikes.device}")
     return _launch(spikes, weights, plan_wm_fc_launch(
         spikes.shape[0], spikes.shape[1], weights.shape[1]))
 
@@ -140,3 +173,33 @@ def _launch(spikes, weights, plan: FCLaunch) -> torch.Tensor:
 
 
 wm_fc_matmul.launches = 0
+
+
+def wm_fc_matmul_bf16(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The bf16 form: spikes (B, IN) cast to bf16 @ bf16 weights (IN, OUT)
+    -> bf16 (B, OUT), the reference's tile roundings."""
+    _check(spikes, weights)
+    if weights.dtype != torch.bfloat16:
+        raise TypeError(f"weights must be bfloat16, got {weights.dtype}")
+    spikes = spikes.to(torch.bfloat16)
+    if spikes.device.type == "cpu":
+        return wm_fc_matmul_bf16_ref(spikes, weights)
+    from repro_torch.kernels.build import check, kernel_function
+
+    b, din = spikes.shape
+    dout = weights.shape[1]
+    spikes = spikes.contiguous()
+    weights = weights.contiguous()
+    out = torch.empty((b, dout), dtype=torch.bfloat16, device=spikes.device)
+    if out.numel() == 0:
+        return out
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = kernel_function("wm_fc_bf16", [vp] * 3 + [ci] * 3 + [vp])
+    err = fn(spikes.data_ptr(), weights.data_ptr(), out.data_ptr(), b, din,
+             dout, torch.cuda.current_stream(spikes.device).cuda_stream)
+    check(err, "wm_fc_bf16")
+    count_launch(wm_fc_matmul_bf16)
+    return out
+
+
+wm_fc_matmul_bf16.launches = 0

@@ -29,6 +29,17 @@ Factories take ``quant_fn``: a weight transform (LSQ fake-quantization,
 or the fixed tier's :class:`~repro_torch.fixed.FixedQuantFn`) applied to
 the masked weight before any artifact is derived from it.
 
+Dtypes follow the reference's at every point.  With bf16 weights
+(``init_snn(..., dtype=torch.bfloat16)``) the ``dense`` conv and every FC
+run in the weights' dtype (a product taken in f32 and rounded once,
+:func:`~repro_torch.core.goap.matmul_rounded`; the LIF and the readout
+round each op to bf16); the ``goap``, ``cuda`` and ``stream`` convs keep
+f32 currents and state, which the bf16 LIF parameters promote to; the
+``cuda`` FC runs the kernels' bf16 forms.  An effective weight keeps the
+dtype of ``w * mask``: an f32 mask (``make_mask_pytree``'s) promotes a
+bf16 weight to f32, as in the reference.  ``cuda_fused``'s whole-network
+kernel is f32 and casts its operands, so it serves f32 logits.
+
 Unlike the reference, which writes cells for one sample and ``vmap``s
 them, every per-timestep value here carries a leading batch axis: a conv
 cell steps ``(B, IC, W) -> (B, OC, W)``, an FC cell ``(B, IN) -> ((B, OUT)
@@ -41,12 +52,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.goap import conv1d_dense_oracle, goap_conv_packed, goap_pack
+from repro_torch.core.goap import (conv1d_dense_oracle, goap_conv_packed,
+                                   goap_pack, matmul_rounded)
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.core.saocds import make_schedule_step, max_pool_spikes, pad_same
 from repro_torch.core.sparse_format import (
@@ -70,6 +83,7 @@ __all__ = [
     "available_backends",
     "get_backend",
     "LayerCell",
+    "timestep_template",
     "run_cell",
     "artifact_build_count",
     "SNNProgram",
@@ -177,12 +191,21 @@ def _at(xs, t: int):
     return tuple(x[t] for x in xs) if isinstance(xs, tuple) else xs[t]
 
 
+def timestep_template(xs):
+    """A per-timestep value of a (T, ...) sequence (or a tuple of them)
+    with its shape and dtype: what ``init_state`` builds the state from
+    (the reference's ``ShapeDtypeStruct``; eager torch takes zeros)."""
+    if isinstance(xs, tuple):
+        return tuple(torch.zeros_like(x[0]) for x in xs)
+    return torch.zeros_like(xs[0])
+
+
 def run_cell(cell: LayerCell, xs):
     """Drive one cell over a (T, B, ...) sequence: ``(ys, state, aux)``."""
     if cell.seq is not None:
         return cell.seq(xs), None, None
     n_t = xs[0].shape[0] if isinstance(xs, tuple) else xs.shape[0]
-    state = cell.init_state(_at(xs, 0))
+    state = cell.init_state(timestep_template(xs))
     ys = []
     for t in range(n_t):
         state, y = cell.step(state, _at(xs, t))
@@ -279,22 +302,28 @@ def effective_weight(layer_params, mask, quant_fn=None) -> torch.Tensor:
     return w
 
 
+def weight_values(w) -> np.ndarray:
+    """A weight's values as float32 numpy (exact for bf16, which numpy
+    cannot hold): what the artifacts (COO, schedules, tilings) derive from."""
+    return torch.as_tensor(w).detach().to("cpu", torch.float32).numpy()
+
+
 def _weight_np(layer_params, mask, quant_fn, artifacts) -> np.ndarray:
     if artifacts is not None and artifacts.get("w_eff") is not None:
         return artifacts["w_eff"]
-    return torch.as_tensor(effective_weight(layer_params, mask, quant_fn)
-                           ).detach().cpu().numpy()
+    return weight_values(effective_weight(layer_params, mask, quant_fn))
 
 
 def _weight(layer_params, mask, quant_fn, artifacts, device) -> torch.Tensor:
-    """The effective weight on ``device``: a plan's precomputed numpy one,
-    else (an unbound ``SNNProgram._bind``) the tensor itself, so autograd
-    reaches the weight, its mask product and the quant_fn's step size."""
+    """The effective weight on ``device`` in its dtype: a plan's
+    precomputed one (float32 values and the dtype they came in), else (an
+    unbound ``SNNProgram._bind``) the tensor itself, so autograd reaches
+    the weight, its mask product and the quant_fn's step size."""
     if artifacts is not None and artifacts.get("w_eff") is not None:
+        dtype = getattr(torch, artifacts.get("w_dtype") or "float32")
         return torch.as_tensor(artifacts["w_eff"], dtype=torch.float32,
-                               device=device)
-    return effective_weight(layer_params, mask, quant_fn).to(
-        device=device, dtype=torch.float32)
+                               device=device).to(dtype)
+    return effective_weight(layer_params, mask, quant_fn).to(device=device)
 
 
 def _layer_coo(layer_params, mask, quant_fn, artifacts) -> CooKernel:
@@ -337,9 +366,12 @@ register_backend(COMMON, KIND_READOUT, _common_readout)
 # Conv/FC cell builders shared by the backends.
 # ---------------------------------------------------------------------------
 
-def _conv_cell(kw: int, oc: int, lif: LIFParams, current_fn) -> LayerCell:
+def _conv_cell(kw: int, oc: int, lif: LIFParams, current_fn,
+               dtype: torch.dtype) -> LayerCell:
+    """LIF conv cell with its membrane in ``dtype`` (the reference's: the
+    weights' for ``dense``, f32 for the sparse convs)."""
     def init_state(x_t):
-        return x_t.new_zeros((x_t.shape[0], oc, x_t.shape[-1]))
+        return x_t.new_zeros((x_t.shape[0], oc, x_t.shape[-1]), dtype=dtype)
 
     def step(v, x_t):
         return lif_step(v, current_fn(pad_same(_spikes_of(x_t), kw)), lif)
@@ -349,7 +381,7 @@ def _conv_cell(kw: int, oc: int, lif: LIFParams, current_fn) -> LayerCell:
 
 def _fc_cell(w: torch.Tensor, lif: LIFParams, current_fn=None) -> LayerCell:
     if current_fn is None:
-        current_fn = lambda s: s.to(w.dtype) @ w   # noqa: E731
+        current_fn = lambda s: matmul_rounded(s.to(w.dtype), w)   # noqa: E731
 
     def init_state(x_t):
         return w.new_zeros((_spikes_of(x_t).shape[0], w.shape[1]))
@@ -371,7 +403,7 @@ def _dense_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
                 artifacts=None, device=None) -> LayerCell:
     w = _weight(layer_params, mask, quant_fn, artifacts, device)
     return _conv_cell(spec.kw, spec.oc, layer_params["lif"].to(device),
-                      lambda ifm: conv1d_dense_oracle(ifm, w))
+                      lambda ifm: conv1d_dense_oracle(ifm, w), w.dtype)
 
 
 def _dense_fc(spec, layer_params, *, cfg, mask=None, quant_fn=None,
@@ -391,7 +423,7 @@ def _goap_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
             artifacts["goap_pack"] = pack
     pack = pack.to(device)
     return _conv_cell(coo.kw, coo.oc, layer_params["lif"].to(device),
-                      lambda ifm: goap_conv_packed(ifm, pack))
+                      lambda ifm: goap_conv_packed(ifm, pack), torch.float32)
 
 
 register_backend("dense", KIND_CONV, _dense_conv)
@@ -423,7 +455,8 @@ def _cuda_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
 
     bs = block_sparse_to(_artifact(artifacts, "block_sparse", build_bs), device)
     lif = layer_params["lif"].to(device)
-    cell = _conv_cell(bs.kw, bs.oc, lif, lambda ifm: goap_conv_op(ifm, bs))
+    cell = _conv_cell(bs.kw, bs.oc, lif, lambda ifm: goap_conv_op(ifm, bs),
+                      torch.float32)
 
     def seq(xs):
         # conv currents depend only on this timestep's input: the whole
@@ -578,6 +611,10 @@ class BoundProgram:
             return out[0], counters
         return _at_batch(out, 0), counters
 
+    def __call__(self, frames: torch.Tensor) -> torch.Tensor:
+        """(T, IC0, W) frames -> logits (n_classes,)."""
+        return self.run(frames)[0]
+
     def batch(self, frames_b: torch.Tensor) -> torch.Tensor:
         """(B, T, IC0, W) -> (B, n_classes)."""
         return self.run_batch(frames_b.transpose(0, 1))[0]
@@ -662,6 +699,18 @@ class SNNProgram:
             stages.append((spec, factory(spec, lp, cfg=self.cfg, mask=m,
                                          quant_fn=quant_fn, device=dev)))
         return BoundProgram(backend=backend, stages=tuple(stages))
+
+    def bind(self, params, backend: str = "dense", *, masks=None,
+             quant_fn=None, layers=None, device=None) -> BoundProgram:
+        """Deprecated: use :func:`repro_torch.plan.compile_plan` (cached
+        artifacts, per-layer assignment, fused streaming) for concrete
+        weights, or :meth:`apply` / :meth:`apply_batch`."""
+        warnings.warn(
+            "SNNProgram.bind is deprecated; use repro_torch.plan.compile_plan "
+            "(cached ExecutionPlans, per-layer backend assignment, fused "
+            "streaming) or SNNProgram.apply", DeprecationWarning, stacklevel=2)
+        return self._bind(params, backend, masks=masks, quant_fn=quant_fn,
+                          device=device, layers=layers)
 
     @staticmethod
     def layer_params(spec: LayerSpec, params, masks):

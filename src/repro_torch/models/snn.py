@@ -12,11 +12,22 @@ Port of ``repro/models/snn.py``.  Params are a nested dict of torch
 tensors, ``{"conv": [{"w": (KW, IC, OC), "lif": LIFParams}], "fc":
 [{"w": (IN, OUT), "lif": LIFParams}]}`` — the reference's pytree with
 torch leaves (:mod:`repro_torch.convert` carries reference weights over).
+``init_snn(seed, cfg, dtype=torch.bfloat16)`` gives the bf16 model; every
+backend then keeps the reference's dtype at each point
+(:mod:`repro_torch.models.graph`).
+
+Execution lives in :mod:`repro_torch.models.graph`; the reference's legacy
+entry points stay as deprecated shims that warn ``DeprecationWarning``:
+
+* ``snn_forward``        -> ``compile_snn(cfg).apply(..., backend="dense")``
+* ``snn_forward_batch``  -> ``compile_snn(cfg).apply_batch(..., backend="dense")``
+* ``snn_forward_sparse`` -> ``compile_snn(cfg).apply(..., backend="goap")``
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import warnings
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +36,8 @@ from repro_torch.core.lif import init_lif_params
 from repro_torch.core.sparse_format import coo_from_dense
 from repro_torch.tree import tree_leaves
 
-__all__ = ["SNNConfig", "init_snn", "param_count", "sparsify_params",
+__all__ = ["SNNConfig", "init_snn", "snn_forward", "snn_forward_batch",
+           "snn_forward_sparse", "param_count", "sparsify_params",
            "density_report"]
 
 
@@ -44,6 +56,15 @@ class SNNConfig:
     lif_theta: float = 1.0
     lif_v_th: float = 1.0
 
+    def feature_widths(self) -> List[int]:
+        """Spatial width after each conv+pool stage."""
+        w = self.input_width
+        widths = []
+        for _ in self.conv_specs:
+            w = w // self.pool
+            widths.append(w)
+        return widths
+
     def validate(self) -> "SNNConfig":
         w = self.input_width
         ic = self.conv_specs[0][1]
@@ -61,26 +82,29 @@ class SNNConfig:
         return self
 
 
-def init_snn(seed: int, cfg: SNNConfig) -> Dict[str, Any]:
-    """He-style init from a numpy seed (the reference draws from a jax key,
-    so the two give different weights; parity tests carry the reference's
-    weights over with :func:`repro_torch.convert.params_from_numpy`)."""
+def init_snn(seed: int, cfg: SNNConfig, dtype=torch.float32) -> Dict[str, Any]:
+    """He-style init from a numpy seed, in ``dtype`` (float32 or bfloat16).
+
+    The weights are drawn in f32 and cast, as the LIF parameters are made
+    in ``dtype`` (the reference draws from a jax key, so the two give
+    different weights; parity tests carry the reference's weights over
+    with :func:`repro_torch.convert.params_from_numpy`)."""
     cfg.validate()
     rng = np.random.default_rng(seed)
     params: Dict[str, Any] = {"conv": [], "fc": []}
     for kw, ic, oc in cfg.conv_specs:
         w = rng.standard_normal((kw, ic, oc)) * np.sqrt(2.0 / (kw * ic))
         params["conv"].append({
-            "w": torch.from_numpy(w.astype(np.float32)),
+            "w": torch.from_numpy(w.astype(np.float32)).to(dtype),
             "lif": init_lif_params((oc, 1), cfg.lif_alpha, cfg.lif_theta,
-                                   cfg.lif_v_th),
+                                   cfg.lif_v_th, dtype),
         })
     for din, dout in cfg.fc_specs:
         w = rng.standard_normal((din, dout)) * np.sqrt(2.0 / din)
         params["fc"].append({
-            "w": torch.from_numpy(w.astype(np.float32)),
+            "w": torch.from_numpy(w.astype(np.float32)).to(dtype),
             "lif": init_lif_params((dout,), cfg.lif_alpha, cfg.lif_theta,
-                                   cfg.lif_v_th),
+                                   cfg.lif_v_th, dtype),
         })
     return params
 
@@ -99,7 +123,7 @@ def sparsify_params(params: Dict[str, Any], masks: Optional[Dict[str, Any]] = No
     sp: Dict[str, list] = {"conv": [], "fc": []}
     for li, layer in enumerate(params["conv"]):
         w = _masked(layer["w"], masks["conv"][li] if masks else None)
-        sp["conv"].append({"coo": coo_from_dense(w.detach().cpu().numpy()),
+        sp["conv"].append({"coo": coo_from_dense(w.detach().float().cpu().numpy()),
                            "lif": layer["lif"]})
     for fi, layer in enumerate(params["fc"]):
         w = _masked(layer["w"], masks["fc"][fi] if masks else None)
@@ -110,7 +134,7 @@ def sparsify_params(params: Dict[str, Any], masks: Optional[Dict[str, Any]] = No
 def density_report(params, masks=None) -> Dict[str, float]:
     """Fraction of non-zero (masked) weights per layer."""
     def density(w, mask) -> float:
-        w = _masked(w, mask).detach().cpu().numpy()
+        w = _masked(w, mask).detach().float().cpu().numpy()
         return float((w != 0).mean())
 
     out = {}
@@ -119,3 +143,38 @@ def density_report(params, masks=None) -> Dict[str, float]:
     for fi, layer in enumerate(params["fc"]):
         out[f"fc{fi + 1}"] = density(layer["w"], masks["fc"][fi] if masks else None)
     return out
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new} (see repro_torch.api)",
+                  DeprecationWarning, stacklevel=3)
+
+
+def snn_forward(params, frames, cfg: SNNConfig, masks=None, quant_fn=None, *,
+                device=None) -> torch.Tensor:
+    """Deprecated: use ``compile_snn(cfg).apply(..., backend="dense")``."""
+    from repro_torch.models.graph import compile_snn
+
+    _deprecated("snn_forward", 'SNNProgram.apply(..., backend="dense")')
+    return compile_snn(cfg).apply(params, frames, "dense", masks=masks,
+                                  quant_fn=quant_fn, device=device)
+
+
+def snn_forward_batch(params, frames_b, cfg: SNNConfig, masks=None,
+                      quant_fn=None, *, device=None) -> torch.Tensor:
+    """Deprecated: use ``compile_snn(cfg).apply_batch(..., backend="dense")``."""
+    from repro_torch.models.graph import compile_snn
+
+    _deprecated("snn_forward_batch", 'SNNProgram.apply_batch(..., backend="dense")')
+    return compile_snn(cfg).apply_batch(params, frames_b, "dense", masks=masks,
+                                        quant_fn=quant_fn, device=device)
+
+
+def snn_forward_sparse(sparse_params, frames, cfg: SNNConfig, *,
+                       device=None) -> torch.Tensor:
+    """Deprecated: use ``compile_snn(cfg).apply(..., backend="goap")``; takes
+    the COO inference form of :func:`sparsify_params`."""
+    from repro_torch.models.graph import compile_snn
+
+    _deprecated("snn_forward_sparse", 'SNNProgram.apply(..., backend="goap")')
+    return compile_snn(cfg).apply(sparse_params, frames, "goap", device=device)

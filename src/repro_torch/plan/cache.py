@@ -89,8 +89,9 @@ class PlanCache:
         """What the cache keeps: the derivations only.  Effective weights
         are re-derived from the live params on every compile (they feed the
         digest before the cache is consulted), so a stored copy would only
-        pin stale weight sets."""
-        return {k: v for k, v in artifacts.items() if k != "w_eff"}
+        pin stale weight sets (their dtype with them)."""
+        return {k: v for k, v in artifacts.items()
+                if k not in ("w_eff", "w_dtype")}
 
     def get_artifacts(self, key: str) -> Optional[Dict[str, Any]]:
         """A copy of the layer's artifacts (callers extend their own dict)."""

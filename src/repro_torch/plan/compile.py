@@ -43,6 +43,7 @@ from repro_torch.models.graph import (
     effective_weight,
     get_backend,
     validate_unique_names,
+    weight_values,
 )
 from repro_torch.models.snn import SNNConfig
 from repro_torch.plan.cache import PlanCache, default_cache
@@ -60,24 +61,34 @@ def _hash_arrays(h, *arrays) -> None:
         h.update(np.ascontiguousarray(a).tobytes())
 
 
-def _np(t) -> np.ndarray:
-    return torch.as_tensor(t).detach().cpu().numpy()
+def _hash_tensors(h, *tensors) -> None:
+    """Hash tensors with their dtype: a bf16 tensor by its 16-bit pattern,
+    so a bf16 model and its f32 upcast never share a digest."""
+    for t in tensors:
+        t = torch.as_tensor(t).detach().cpu()
+        if t.dtype == torch.bfloat16:
+            h.update(f"{tuple(t.shape)}|bfloat16|".encode())
+            h.update(t.contiguous().view(torch.int16).numpy().tobytes())
+        else:
+            _hash_arrays(h, t.numpy())
 
 
 def _layer_key(spec: LayerSpec, layer_params, mask,
-               w_eff: Optional[np.ndarray]) -> str:
+               w_eff: Optional[np.ndarray], w_dtype: str = "float32") -> str:
     """Artifact key of one layer (no backend, no device: artifacts are
-    numpy and shared by every backend of the same weights)."""
+    numpy and shared by every backend of the same weights and dtype)."""
     h = hashlib.sha256(_VERSION)
     h.update(repr(spec).encode())
     if w_eff is not None:
+        if w_dtype != "float32":
+            h.update(f"w_dtype={w_dtype}|".encode())
         _hash_arrays(h, w_eff)
     else:
         coo = layer_params["coo"]
         h.update(f"coo:{coo.kw}:{coo.ic}:{coo.oc}".encode())
         _hash_arrays(h, coo.data, coo.row_idx, coo.col_idx)
     if mask is not None:
-        _hash_arrays(h, _np(mask))
+        _hash_tensors(h, mask)
     return h.hexdigest()
 
 
@@ -174,7 +185,8 @@ class ExecutionPlan:
     device: torch.device
 
     def to_device(self, frames) -> torch.Tensor:
-        """Frames (tensor or array) as float32 on the plan's device."""
+        """Frames (tensor or array) as float32 on the plan's device (a
+        bf16 model too: its first layer casts, as the reference's does)."""
         return torch.as_tensor(frames, dtype=torch.float32, device=self.device)
 
     def run_streaming(self, frames: torch.Tensor):
@@ -316,15 +328,17 @@ def compile_plan(
         h.update(f"|{spec.name}={backend}|".encode())
         lp, mask = program.layer_params(spec, params, masks)
         w_eff = lkey = None
+        w_dtype = "float32"
         if spec.kind in (KIND_CONV, KIND_FC):
             if "coo" not in lp:
-                w_eff = _np(effective_weight(lp, mask, quant_fn)
-                            ).astype(np.float32)
-            lkey = _layer_key(spec, lp, mask, w_eff)
+                w = effective_weight(lp, mask, quant_fn)
+                w_eff = weight_values(w)
+                w_dtype = str(w.dtype).removeprefix("torch.")
+            lkey = _layer_key(spec, lp, mask, w_eff, w_dtype)
             h.update(lkey.encode())
             lif = lp["lif"]
-            _hash_arrays(h, _np(lif.alpha_logit), _np(lif.theta), _np(lif.v_th))
-        infos.append((spec, backend, lp, mask, w_eff, lkey))
+            _hash_tensors(h, lif.alpha_logit, lif.theta, lif.v_th)
+        infos.append((spec, backend, lp, mask, w_eff, w_dtype, lkey))
     digest = h.hexdigest()
 
     cached = cache.get_plan(digest)
@@ -332,12 +346,13 @@ def compile_plan(
         return cached
 
     lplans = []
-    for spec, backend, lp, mask, w_eff, lkey in infos:
+    for spec, backend, lp, mask, w_eff, w_dtype, lkey in infos:
         artifacts: Optional[Dict[str, Any]] = None
         if lkey is not None:
             artifacts = cache.get_artifacts(lkey) or {}
             if w_eff is not None:
                 artifacts["w_eff"] = w_eff
+                artifacts["w_dtype"] = w_dtype
             before = {k for k, v in artifacts.items() if v is not None}
         cell = get_backend(backend, spec.kind)(
             spec, lp, cfg=program.cfg, mask=mask, quant_fn=quant_fn,

@@ -75,7 +75,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import ServeMesh, serve_mesh, shard_serve_fn
 from repro_torch.fixed import assignment_uses_fixed, fixed_encode_batch, serving_quant_fn
 from repro_torch.fixed.golden import golden_encode_frames
-from repro_torch.models.graph import compile_snn
+from repro_torch.models.graph import compile_snn, weight_values
 from repro_torch.models.snn import SNNConfig, sparsify_params
 from repro_torch.obs.activity import ActivityObserver
 from repro_torch.obs.metrics import default_registry
@@ -186,6 +186,13 @@ def _fail_future(fut, err: BaseException) -> None:
         pass
 
 
+def host_logits(logits: torch.Tensor) -> torch.Tensor:
+    """Logits as the host receives them: bf16 widened to f32 on the device
+    (numpy holds no bf16; the values are exact), other dtypes as they are
+    (the ``fixed`` tier's int32)."""
+    return logits.float() if logits.dtype == torch.bfloat16 else logits
+
+
 def count_batch_activity(stats: ServeStats, sparse, frames: np.ndarray,
                          cfg: SNNConfig) -> None:
     """Exact event counts through the conv stack (cost-model hooks), on
@@ -197,7 +204,7 @@ def count_batch_activity(stats: ServeStats, sparse, frames: np.ndarray,
     """
     # the WM layout depends only on the fixed weights (counting the
     # dominant FC is enough)
-    wm = weight_mask_from_dense(sparse["fc"][0]["w"].detach().cpu().numpy())
+    wm = weight_mask_from_dense(weight_values(sparse["fc"][0]["w"]))
     with torch.inference_mode():
         for b in range(frames.shape[0]):
             x = torch.as_tensor(frames[b], dtype=torch.float32)  # (T, IC, L)
@@ -280,8 +287,8 @@ class AMCServeEngine:
                     [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
             frames = self._encode(chunk)
             with torch.inference_mode():
-                logits = self._fwd(torch.as_tensor(
-                    frames, device=self.device)).cpu().numpy()
+                logits = host_logits(self._fwd(torch.as_tensor(
+                    frames, device=self.device))).cpu().numpy()
             n_real = self.batch_size - pad
             preds[s: s + n_real] = logits[:n_real].argmax(-1)
             self.stats.record_batch(self.backend, padded=pad)
@@ -592,12 +599,12 @@ class AsyncAMCServeEngine:
                     logits, accs = plan.batch_counters(encode(x, osr))
                     layout["names"] = list(accs)
                     layout["n_classes"] = logits.shape[1]
-                    return torch.cat([logits] + [accs[n][:, None]
+                    return torch.cat([host_logits(logits)] + [accs[n][:, None]
                                                  for n in layout["names"]],
                                      dim=1)
                 return forward
             batch_fn = plan.preferred_batch()
-            return lambda x: batch_fn(encode(x, osr))
+            return lambda x: host_logits(batch_fn(encode(x, osr)))
 
         forwards = [forward_of(plan) for plan in plans]
         graphs = CapturedStep(forwards, self.devices) if captures(

@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from repro.api import init_snn as ref_init_snn
+from repro.core.lif import LIFParams as RefLIF
 from repro.models.snn import SNNConfig as RefConfig
 from repro.train.pruning import make_mask_pytree as ref_masks
 from repro_torch.convert import masks_from_numpy, params_from_numpy
@@ -70,6 +72,30 @@ def setup(ref_cfg, seed, density):
     masks = ref_masks(params, density)
     return (params, masks, params_from_numpy(params_to_numpy(params)),
             masks_from_numpy(masks_to_numpy(masks)))
+
+
+def setup_bf16(ref_cfg, seed, masks_dtype, trained_lif):
+    """The reference's bf16 params (optionally with per-neuron LIF
+    parameters spread as training leaves them) and masks in
+    ``masks_dtype`` (None: no masks), and their port twins."""
+    params = ref_init_snn(jax.random.PRNGKey(seed), ref_cfg, dtype=jnp.bfloat16)
+    if trained_lif:
+        rng = np.random.default_rng(seed)
+
+        def spread(lif):
+            shape = lif.alpha_logit.shape
+            return RefLIF(*(jnp.asarray(lo + (hi - lo) * rng.random(shape), jnp.bfloat16)
+                            for lo, hi in ((0.5, 4.0), (0.5, 1.5), (0.3, 1.2))))
+        params = {g: [{"w": lp["w"], "lif": spread(lp["lif"])} for lp in params[g]]
+                  for g in ("conv", "fc")}
+    masks = None
+    if masks_dtype is not None:
+        masks = jax.tree_util.tree_map(lambda m: m.astype(masks_dtype),
+                                       ref_masks(params, 0.5))
+    tparams = params_from_numpy(params_to_numpy(params))
+    tmasks = None if masks is None else masks_from_numpy(
+        {g: [np.asarray(m) for m in masks[g]] for g in ("conv", "fc")})
+    return params, masks, tparams, tmasks
 
 
 def spike_frames(seed, shape):

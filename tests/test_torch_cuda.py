@@ -573,7 +573,9 @@ def test_robustness_kernel_backends_agree_on_the_card(cuda):
             backends=("cuda_fused", "cuda", "goap")),
         masks=make_mask_pytree(params, 0.5), device=cuda)
     assert report["agreement"]["max_abs_logit_diff"] <= 1e-5
-    assert all(n > 0 for n in launch_counts().values())
+    # the f32 model launches every f32 form (and no bf16 one)
+    assert all((n > 0) != name.endswith("_bf16")
+               for name, n in launch_counts().items())
 
 
 @pytest.mark.cuda
@@ -927,3 +929,91 @@ def test_cells_captured_equal_eager(cuda, arch):
     decode = steps._decode_cell(arch, ShapeSpec("d", 16, 2, "decode"), cfg, mesh)
     both(decode, lambda: (bf16, init_decode_state(cfg, 2, 16, device=cuda),
                           toks[:, :1].to(cuda)), 4)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms (init_snn(dtype=torch.bfloat16)).
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,din,dout", [(8, 256, 64), (5, 100, 37), (512, 1024, 128),
+                                        (3, 7, 11), (70, 130, 40)])
+def test_wm_fc_bf16_kernel_equals_its_plain_version(cuda, b, din, dout):
+    from repro_torch.kernels import wm_fc_matmul_bf16, wm_fc_matmul_bf16_ref
+
+    rng = np.random.default_rng(b + din + dout)
+    s = torch.as_tensor(rng.random((b, din)) < 0.5, device=cuda).to(torch.bfloat16)
+    w = torch.as_tensor((rng.random((din, dout)) < 0.4) * rng.normal(size=(din, dout)),
+                        device=cuda).to(torch.bfloat16)
+    reset_launch_counts()
+    got = wm_fc_matmul(s, w)
+    assert launch_counts()["wm_fc_matmul_bf16"] == 1
+    assert launch_counts()["wm_fc_matmul"] == 0
+    assert torch.equal(got, wm_fc_matmul_bf16_ref(s, w))
+    assert torch.equal(wm_fc_matmul_bf16(s.float(), w), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bo,bk,oi", [(8, 16, 64), (8, 32, 200), (4, 16, 33),
+                                      (16, 40, 129)])
+def test_goap_conv_bf16_kernel_equals_its_plain_version(cuda, bo, bk, oi):
+    from repro_torch.kernels import goap_conv_block_sparse_bf16_ref
+
+    rng = np.random.default_rng(bo * bk + oi)
+    blocks = torch.as_tensor(rng.normal(size=(3, 4, bo, bk)), device=cuda
+                             ).to(torch.bfloat16)
+    cols = torch.as_tensor(rng.integers(0, 5, (3, 4)), dtype=torch.int32,
+                           device=cuda)
+    x = torch.as_tensor(rng.random((5 * bk, oi)) < 0.5, device=cuda).to(torch.bfloat16)
+    reset_launch_counts()
+    got = goap_conv_block_sparse(blocks, cols, x, block_oc=bo, block_k=bk)
+    assert launch_counts()["goap_conv_block_sparse_bf16"] == 1
+    assert torch.equal(got, goap_conv_block_sparse_bf16_ref(blocks, cols, x))
+    cols[1, 2] = 9                              # outside X': rows 8..15 NaN
+    bad = goap_conv_block_sparse(blocks, cols, x, block_oc=bo, block_k=bk)
+    assert bool(bad[bo:2 * bo].isnan().all()) and not bool(bad[:bo].isnan().any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tt,n", [(1, 16), (8, 200), (3, 1030), (16, 7)])
+def test_lif_bf16_kernel_equals_its_plain_version(cuda, tt, n):
+    from repro_torch.kernels import lif_update_fused, lif_update_fused_ref
+
+    rng = np.random.default_rng(tt * n)
+    args = [torch.as_tensor(a, device=cuda).to(torch.bfloat16) for a in (
+        rng.normal(size=(tt, n)), rng.normal(size=n), rng.uniform(0.5, 0.99, n),
+        rng.uniform(0.5, 1.5, n), rng.uniform(0.3, 1.2, n))]
+    reset_launch_counts()
+    got = lif_update_fused(*args)
+    assert launch_counts()["lif_update_fused_bf16"] == 1
+    for g, w in zip(got, lif_update_fused_ref(*args)):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_bf16_model_serves_through_the_bf16_kernels(cuda):
+    params = init_snn(40, SMALL, dtype=torch.bfloat16)
+    masks = {g: [m.to(torch.bfloat16) for m in ms]
+             for g, ms in make_mask_pytree(params, 0.5).items()}
+    program = compile_snn(SMALL)
+    frames = sigma_delta_encode_batch(
+        torch.as_tensor(_iq(SMALL, 8, 41), device=cuda), SMALL.timesteps)
+    card = compile_plan(program, params, masks=masks, assignment="cuda",
+                        device=cuda)
+    cpu = compile_plan(program, params, masks=masks, assignment="cuda",
+                       device="cpu")
+    reset_launch_counts()
+    got = card.bound.batch(frames)
+    counts = launch_counts()
+    assert counts["wm_fc_matmul_bf16"] == 2 and counts["lif_update_fused_bf16"] == 2
+    assert counts["goap_conv_block_sparse"] == 2 and counts["wm_fc_matmul"] == 0
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), cpu.bound.batch(frames.cpu()))
+    iq = _iq(SMALL, 16, 42)
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda",
+                             max_batch=8) as engine:
+        preds = engine.classify(iq)
+        assert engine.get_version("default").graphs is not None
+    want = cpu.bound.batch(sigma_delta_encode_batch(torch.as_tensor(iq),
+                                                    SMALL.timesteps))
+    np.testing.assert_array_equal(preds, want.argmax(-1).numpy())

@@ -19,6 +19,7 @@ Bucket flushes are made deterministic by full batches (requests a
 multiple of the batch) and a long ``--max-delay-ms``.
 """
 import contextlib
+import gc
 import io
 import json
 import re
@@ -203,6 +204,35 @@ def test_cli_fleet_metrics_slo_and_dumps(registry_root, tmp_path):
     assert obs.validate_perfetto(doc) == []
     assert ref_obs.validate_perfetto(doc) == []
     assert re.search(r"^alerts: \d+ firing", text, re.M)
+
+
+def test_cli_serves_with_the_warm_heap_frozen(registry_root, tmp_path,
+                                             monkeypatch):
+    """The stalled traced replica (ROADMAP Queue 3): tracing's allocations
+    set off a full collection mid-window, which walks every long-lived
+    object of the process.  The CLI freezes the warm heap for the serving
+    window: at the first submit a full pass would walk a small fraction
+    of what it walks outside the window, and the heap is handed back
+    after."""
+    seen = {}
+    submit = AsyncAMCServeEngine.submit
+
+    def first_submit(self, *args, **kwargs):
+        if not seen:
+            seen["frozen"] = gc.get_freeze_count()
+            seen["walked"] = len(gc.get_objects())
+        return submit(self, *args, **kwargs)
+
+    monkeypatch.setattr(AsyncAMCServeEngine, "submit", first_submit)
+    outside = len(gc.get_objects())      # a full pass walks these unfrozen
+    rc, _ = _run(serve.main, [
+        "--arch", "saocds-amc", "--registry", registry_root, "--device", "cpu",
+        "--backend", "goap", "--deadline-ms", "600000",
+        "--trace-dump", str(tmp_path / "trace.json")] + DETERMINISTIC)
+    assert rc == 0
+    assert seen["frozen"] > 0.8 * outside
+    assert seen["walked"] < 0.1 * seen["frozen"]
+    assert gc.get_freeze_count() == 0
 
 
 def test_cli_refuses_what_it_cannot_serve(registry_root, capsys):

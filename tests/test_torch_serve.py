@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SMALL, SMALL_REF, setup
+from _torch_parity import SMALL, SMALL_REF, setup, setup_bf16
 from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.serve import AMCServeEngine as RefSyncEngine
 from repro.serve import AsyncAMCServeEngine as RefEngine
@@ -312,3 +312,26 @@ def test_engine_fleet_accessors(weights):
     assert s["queue_depths_by_priority"] == {"realtime": 0, "bulk": 0}
     assert s["n_expired"] == s["n_rejected"] == s["n_cancelled"] == 0
     assert s["busy_s"] > 0 and 0.0 < s["utilization"] <= 1.0
+
+
+@pytest.mark.parametrize("port,ref", [("dense", "dense"), ("stream", "stream"),
+                                      ("cuda_fused", "pallas_fused")])
+def test_bf16_model_serves_like_the_reference_sync_engine(port, ref):
+    """A bf16 model on the backends ``tests/test_torch_bf16.py`` does not
+    serve (it serves ``goap`` and ``cuda``): the port's sync and async
+    engines give the reference sync engine's predictions; ``cuda_fused``
+    serves through the f32 whole-network kernel on the cast operands, as
+    the reference's ``pallas_fused`` does."""
+    import jax.numpy as jnp
+
+    params, masks, tparams, tmasks = setup_bf16(SMALL_REF, 7, jnp.bfloat16, True)
+    iq = np.random.default_rng(7).normal(size=(16,) + FRAME_SHAPE).astype(np.float32)
+    want = RefSyncEngine(params, SMALL_REF, masks, batch_size=8,
+                         backend=ref).classify(iq)
+    sync = AMCServeEngine(tparams, SMALL, tmasks, batch_size=8, backend=port,
+                          device="cpu")
+    np.testing.assert_array_equal(sync.classify(iq), want)
+    with AsyncAMCServeEngine(tparams, SMALL, tmasks, backend=port, max_batch=8,
+                             device="cpu") as engine:
+        got = [f.result(timeout=60) for f in [engine.submit(x) for x in iq]]
+    np.testing.assert_array_equal(np.array(got), want)
