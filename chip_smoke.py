@@ -219,11 +219,6 @@ file; exits non-zero without them.  In order, it
     the card, and last ``{"ok": true, "device": {...}}``.
 
 Any mismatch or exception ends the run with a non-zero exit code.
-
-``--only bf16`` and ``--only cli_windows`` (with ``--windows N``: N pairs
-of 1-replica CLI windows, one with the observability on and one without,
-first by the CLI without its frozen heap, then by the CLI as it is) run
-those phases alone after the build, and print no result line.
 """
 from __future__ import annotations
 
@@ -2019,17 +2014,12 @@ def window_pauses(t0: float):
                        for g, (n, worst, at) in sorted(found["gc"].items())}
 
 
-def cli_window(device, observed: bool, work: pathlib.Path,
-               frozen: bool = True) -> dict:
+def cli_window(device, observed: bool, work: pathlib.Path) -> dict:
     """One 1-replica window of the serving CLI: 512 requests at batch 64,
     with tracing, a metrics endpoint and the default SLOs (``observed``)
-    or with none of them.  ``frozen=False`` serves without the CLI's
-    frozen heap (``launch.serve.serving_heap`` as a no-op: the CLI before
-    the fix), to show the stall beside the fix in one call.  Fails when
-    the window has not served all of its requests within
-    CLI_WINDOW_LIMIT_S (a stalled replica) or the CLI failed; prints and
-    returns its frames/s and p50/p99."""
-    from repro_torch.launch import serve
+    or with none of them.  Fails when the window has not served all of
+    its requests within CLI_WINDOW_LIMIT_S (a stalled replica) or the CLI
+    failed; prints and returns its frames/s and p50/p99."""
     from repro_torch.obs import (disable_tracing, metrics,
                                  set_default_alert_manager,
                                  set_default_recorder)
@@ -2042,15 +2032,11 @@ def cli_window(device, observed: bool, work: pathlib.Path,
                  "--trace-dump", str(work / "window_trace.json"),
                  "--perfetto-dump", str(work / "window_perfetto.json")]
     old = metrics.set_default_registry(metrics.MetricsRegistry())
-    heap = serve.serving_heap
-    if not frozen:
-        serve.serving_heap = contextlib.nullcontext
     t0 = time.perf_counter()
     with window_pauses(t0) as pauses:
         try:
             thread, out, result = _run_cli(argv, limit_s=CLI_WINDOW_LIMIT_S)
         finally:
-            serve.serving_heap = heap
             metrics.set_default_registry(old)
             disable_tracing()
             set_default_recorder(None)
@@ -2067,45 +2053,31 @@ def cli_window(device, observed: bool, work: pathlib.Path,
     if stats["requests"] != CLI_REQUESTS:
         raise AssertionError(f"a 1-replica window served {stats['requests']} "
                              f"of {CLI_REQUESTS}")
-    window = {"observed": observed, "frozen": frozen,
-              "frames_per_s": stats["frames_per_s"],
+    window = {"observed": observed, "frames_per_s": stats["frames_per_s"],
               "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
               "backend": stats["backend"], "seconds": seconds, **pauses}
     print("cli_window " + json.dumps(window))
     return window
 
 
-def run_cli_windows(device, n: int, unfrozen: bool = False) -> dict:
-    """ROADMAP Queue 3's stalled replica: ``n`` 1-replica windows with
-    tracing, ``/metrics`` and ``--slo default`` on and ``n`` with them off,
-    in turns.  With ``unfrozen``, the CLI without its frozen heap (the CLI
-    before the fix) serves the same ``n`` pairs first, in the same turns:
-    its collector then carries its counts from window to window, as a
-    process serving on does.  An observed window below a fifth of the
-    median unobserved window of its kind is reported (``stalled``,
-    ``stalled_unfrozen``)."""
+def run_cli_windows(device) -> list:
+    """The stalled replica of ROADMAP Queue 3: one 1-replica window with
+    tracing, ``/metrics`` and ``--slo default`` on, then one with them off,
+    each printed; the observed window is reported as ``stalled`` when it
+    serves below a fifth of the unobserved one's frames/s."""
     import shutil
     import tempfile
 
-    kinds = ([False] if unfrozen else []) + [True]
     work = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_windows_"))
     try:
-        windows = [cli_window(device, observed, work, frozen)
-                   for frozen in kinds for _ in range(n)
+        windows = [cli_window(device, observed, work)
                    for observed in (True, False)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    line = {"windows": windows, "card": nvidia_smi()}
-    for frozen in kinds:
-        mine = [w for w in windows if w["frozen"] == frozen]
-        off = statistics.median(w["frames_per_s"] for w in mine
-                                if not w["observed"])
-        suffix = "" if frozen else "_unfrozen"
-        line["median_off_frames_per_s" + suffix] = off
-        line["stalled" + suffix] = sum(1 for w in mine if w["observed"]
-                                       and w["frames_per_s"] < off / 5)
-    print("cli_windows " + json.dumps(line))
-    return line
+    on, off = (w["frames_per_s"] for w in windows)
+    print("cli_windows " + json.dumps({"stalled": on < off / 5,
+                                       "card": nvidia_smi()}))
+    return windows
 
 
 def run_serve_cli_phase(cfg, device) -> dict:
@@ -2197,7 +2169,7 @@ def run_serve_cli_phase(cfg, device) -> dict:
         raise AssertionError(f"served {stats['requests']} of {CLI_REQUESTS}")
     # one replica alone, a window with the observability on and one
     # without (each printed; each must serve all of its requests)
-    windows = run_cli_windows(device, 1)["windows"]
+    windows = run_cli_windows(device)
     code, body = scraped["/readyz"]
     if code != 200 or json.loads(body)["ready"] is not True:
         raise AssertionError(f"/readyz answered {code}: {body!r}")
@@ -3419,18 +3391,9 @@ def bf16_fused_equals_upcast(program, params, masks, frames_b, device) -> None:
                              "the f32 model on their upcast")
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
 
-    ap = argparse.ArgumentParser(description="Drive the port on one H100.")
-    ap.add_argument("--only", nargs="+", choices=("bf16", "cli_windows"),
-                    default=None, help="run only these phases (after the "
-                    "build) and print no result line")
-    ap.add_argument("--windows", type=int, default=5,
-                    help="1-replica CLI windows of each kind for cli_windows")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3450,24 +3413,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.timing import call_ms, graph_ms
 
     device = torch.device("cuda", 0)
-    timers = Timers(call_ms, graph_ms, host_timer)
-    if args.only:
-        from repro_torch.plan import PlanCache, set_default_cache
-
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        set_default_cache(PlanCache(disk_dir=""))
-        if "bf16" in args.only:
-            print("phase: bf16")
-            rows, _ = run_bf16_phase(device, timers)
-            print("bf16_kernels " + json.dumps(rows))
-        if "cli_windows" in args.only:
-            print("phase: cli_windows")
-            run_cli_windows(device, args.windows, unfrozen=True)
-        print(f"chip_smoke --only {' '.join(args.only)}: "
-              f"{time.perf_counter() - t_start:.3f} s in all")
-        return 0
-    result = run(device, timers)
+    result = run(device, Timers(call_ms, graph_ms, host_timer))
     for row in result["kernels"]:
         print(f"  {row['name']}: {row['ms']:.4f} ms (one call "
               f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.goap import conv1d_dense_oracle, goap_conv_packed, goap_pack
+from repro_torch.core.goap import (conv1d_dense_oracle, goap_conv_packed, goap_pack,
+                                   matmul_rounded)
 from repro_torch.core.lif import LIFParams, lif_step
 from repro_torch.core.sparse_format import (
     ITER_COMPUTE,
@@ -120,7 +121,7 @@ def sw_conv_layer(spikes_t: torch.Tensor, kernel: torch.Tensor, lif: LIFParams,
 def wm_fc_step(v: torch.Tensor, spikes: torch.Tensor, weights: torch.Tensor,
                lif: LIFParams) -> Tuple[torch.Tensor, torch.Tensor]:
     """One timestep of a weight-masked FC layer (zeros kept in ``weights``)."""
-    return lif_step(v, spikes.to(weights.dtype) @ weights, lif)
+    return lif_step(v, matmul_rounded(spikes.to(weights.dtype), weights), lif)
 
 
 def wm_fc_layer(spikes_t: torch.Tensor, wm, lif: LIFParams,

@@ -50,6 +50,11 @@ from repro_torch.configs.registry import ARCH_IDS
 __all__ = ["Generator", "generate", "main"]
 
 
+# the collector's permanent generation when this module was imported (the
+# interpreter may start with a few hundred objects there)
+_FROZEN_AT_IMPORT = gc.get_freeze_count()
+
+
 @contextlib.contextmanager
 def serving_heap():
     """Keep the collector's full passes off the serving window.
@@ -60,11 +65,17 @@ def serving_heap():
     allocations of tracing set one off during serving: on one H100 (NVIDIA
     H100 80GB HBM3, 700.00 W) one such pass of 117-142 ms stalled 3 of 10
     traced 1-replica windows of 512 requests to 3,014-3,685 frames/s,
-    against 30,879-43,651 untraced (``chip_smoke.py --only cli_windows``).
-    Here the garbage is collected once, the survivors are moved to the
-    collector's permanent generation for the window (``gc.freeze``), so a
-    full pass during serving walks only what serving made, and they are
-    handed back after it."""
+    against 30,879-43,651 untraced (``chip_smoke.py``'s ``cli_window``).
+    Here the garbage is collected once (84-268 ms of host time before the
+    first request, on that machine), the survivors are moved to the collector's permanent
+    generation for the window (``gc.freeze``), so a full pass during
+    serving walks only what serving made, and they are handed back after
+    it.  A caller that has frozen its own heap since this module was
+    imported keeps it as it is: nothing is collected, frozen or handed
+    back (``gc.unfreeze`` cannot hand back only part of it)."""
+    if gc.get_freeze_count() > _FROZEN_AT_IMPORT:
+        yield
+        return
     gc.collect()
     gc.freeze()
     try:

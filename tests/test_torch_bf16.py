@@ -36,6 +36,7 @@ from _torch_parity import port_plan_cache_in_memory  # noqa: F401
 from repro.api import (compile_plan as ref_compile_plan, compile_snn as ref_compile_snn,
                        init_snn as ref_init_snn)
 from repro.core.lif import LIFParams as RefLIF, lif_step as ref_lif_step
+from repro.core.saocds import wm_fc_layer as ref_wm_fc_layer
 from repro.data.pipeline import sigma_delta_encode_np
 from repro.kernels.goap_conv import goap_conv_block_sparse as ref_goap_raw
 from repro.kernels.lif_update import lif_update_fused as ref_lif_raw
@@ -44,6 +45,7 @@ from repro.serve.engine import AMCServeEngine as RefSync
 from repro_torch.api import AsyncAMCServeEngine, compile_plan, compile_snn, init_snn
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.lif import LIFParams, init_lif_params, lif_step
+from repro_torch.core.saocds import wm_fc_layer
 from repro_torch.kernels import (goap_conv_block_sparse, goap_conv_block_sparse_bf16_ref,
                                  lif_update_fused, lif_update_fused_ref, wm_fc_matmul,
                                  wm_fc_matmul_bf16_ref)
@@ -123,6 +125,24 @@ def test_lif_bf16_equals_reference_kernel(tt, n):
         sp, vf = fn(*(bf(a) for a in args))
         assert_bits(sp, sp_r)
         assert_bits(vf, vf_r)
+
+
+@pytest.mark.parametrize("tt,din,dout", [(6, 300, 37), (8, 1024, 128)])
+def test_wm_fc_layer_bf16_equals_reference(tt, din, dout):
+    """The ``stream`` interpreter's FC layer on bf16 weights: each product
+    in f32 rounded once to bf16, then the bf16 LIF, as the reference's scan."""
+    rng = np.random.default_rng(tt * din + dout)
+    s = jnp.asarray(rng.random((tt, din)) < 0.5, jnp.bfloat16)
+    w = jnp.asarray((rng.random((din, dout)) < 0.5) * rng.normal(size=(din, dout))
+                    * 0.2, jnp.bfloat16)
+    lif = [jnp.asarray(a, jnp.bfloat16) for a in (
+        rng.normal(size=dout) + 1, rng.uniform(0.5, 1.5, dout),
+        rng.uniform(0.3, 1.2, dout))]
+    sp_r, v_r = ref_wm_fc_layer(s, w, RefLIF(*lif))
+    sp, v = wm_fc_layer(bf(s), bf(w), LIFParams(*(bf(a) for a in lif)))
+    assert_bits(sp, sp_r)
+    assert_bits(v, v_r)
+    assert 0 < float(sp.float().mean()) < 1
 
 
 def test_bf16_sigmoid_and_its_promotion_match_the_reference():

@@ -235,6 +235,22 @@ def test_cli_serves_with_the_warm_heap_frozen(registry_root, tmp_path,
     assert gc.get_freeze_count() == 0
 
 
+def test_serving_heap_leaves_a_callers_frozen_heap_as_it_is():
+    """A caller that froze its own heap before calling the CLI gets it back
+    frozen: the serving window neither collects nor thaws it."""
+    gc.freeze()
+    try:
+        frozen = gc.get_freeze_count()
+        with serve.serving_heap():
+            assert gc.get_freeze_count() == frozen
+        assert gc.get_freeze_count() == frozen
+    finally:
+        gc.unfreeze()
+    with serve.serving_heap():
+        assert gc.get_freeze_count() > 0
+    assert gc.get_freeze_count() == 0
+
+
 def test_cli_refuses_what_it_cannot_serve(registry_root, capsys):
     # the language-model archs serve since the zoo was ported
     # (tests/test_torch_lm_train.py); the encoder-decoder one returns 1 with
