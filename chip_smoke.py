@@ -48,12 +48,16 @@ file; exits non-zero without them.  In order, it
    ``lif_update_fused_bf16``) bit-equal to their plain versions on the
    served path's operands (the count of differing elements printed; the
    conv's cast to bf16, a form the served conv never reaches) and within
-   1 bf16 ulp on random normal operands at the reference's test shapes,
-   then timed like the f32 kernels (the bound over the bf16 tensor-core
-   peak for the two products); a captured ``AsyncAMCServeEngine(backend=
-   "cuda")`` serves the 256 requests with 0 failed, by graph replay alone,
-   launching the bf16 FC and LIF forms and the f32 conv and LIF (launches
-   counted per replay), with the card's layered ``cuda`` predictions;
+   1 bf16 ulp on random normal operands at the reference's test shapes
+   and at the edges of the kernels' tiling (``BF16_FC_SHAPES``,
+   ``BF16_GOAP_TILES``), then timed like the f32 kernels (the bound over
+   the bf16 tensor-core peak for the two products; each form's row with
+   its launch plans, and a ``bf16_kernel`` line with its ratio to the
+   library call and its per-launch times); a captured
+   ``AsyncAMCServeEngine(backend="cuda")`` serves the 256 requests with 0
+   failed, by graph replay alone, launching the bf16 FC and LIF forms and
+   the f32 conv and LIF (launches counted per replay), with the card's
+   layered ``cuda`` predictions;
    ``dense``, ``goap``, ``stream``, ``cuda`` and ``cuda_fused`` on the card
    against the same backend on the CPU on 64 frames (predictions equal,
    logits within 1 bf16 ulp, bf16 on the layered paths, f32 from the fused
@@ -3006,9 +3010,14 @@ BF16_NOTES = {"goap_conv_block_sparse_bf16": (
     "casts to f32, as the reference's does); held and timed on the served "
     "convs' operands cast to bf16")}
 BF16_BACKENDS = ("dense", "goap", "stream", "cuda", "cuda_fused")
-# the reference's kernel-test shapes, on random normal operands
-BF16_FC_SHAPES = ((8, 256, 64), (5, 100, 37), (512, 1024, 128))
-BF16_GOAP_TILES = ((8, 16), (8, 32))         # (block_oc, block_k)
+# the reference's kernel-test shapes, on random normal operands, and the
+# edges of the bf16 kernels' tiling: ragged B, IN not a multiple of 128,
+# more reference tiles than a block has warps, OUT = 11 / 37; BO 4-32, BK
+# 16-48 and OI off the strip and off 8
+BF16_FC_SHAPES = ((8, 256, 64), (5, 100, 37), (512, 1024, 128), (512, 128, 11),
+                  (70, 130, 40), (33, 1000, 11), (17, 300, 37), (5, 2100, 64))
+BF16_GOAP_TILES = ((8, 16, 64), (8, 32, 64),            # (block_oc, block_k, OI)
+                   (16, 48, 1000), (24, 32, 129), (32, 16, 520), (4, 48, 33))
 BF16_LIF_SHAPES = ((1, 16), (4, 128), (8, 200), (3, 1030), (16, 7))
 
 
@@ -3128,8 +3137,8 @@ def check_bf16_kernels(calls, device, timers, seed):
             ((bf(rng.normal(size=(3, 4, bo, bk))),
               torch.as_tensor(rng.integers(0, 5, (3, 4)), dtype=torch.int32,
                               device=device),
-              bf(rng.random((5 * bk, 64)) < 0.5)),
-             {"block_oc": bo, "block_k": bk}) for bo, bk in BF16_GOAP_TILES],
+              bf(rng.random((5 * bk, oi)) < 0.5)),
+             {"block_oc": bo, "block_k": bk}) for bo, bk, oi in BF16_GOAP_TILES],
         "lif_update_fused_bf16": [
             ((bf(rng.normal(size=(t, n))), bf(rng.normal(size=n)),
               bf(rng.uniform(0.5, 0.99, n)), bf(rng.uniform(0.5, 1.5, n)),
@@ -3181,18 +3190,42 @@ def check_bf16_kernels(calls, device, timers, seed):
 
         launch = [lambda a=args, k=kwargs: kernel(*a, **k)
                   for args, kwargs in calls[name]]
-        rows.append(dict(
+        per_ms = [timers.graph(fn) for fn in launch]
+        lib_ms = None if work[0][2] is None else [timers.graph(w[2]) for w in work]
+        row = dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{stem}.cu",
             replaces=replaces, max_abs_err=max_err,
             random_max_ulp=worst, served_elements_differ=n_diff,
-            ms=total(timers.graph, launch), call_ms=total(timers.call, launch),
+            ms=sum(per_ms), call_ms=total(timers.call, launch),
             plain_ms=total(timers.call, [lambda a=args: plain(*a)
                                          for args, _ in calls[name]]),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=(None if work[0][2] is None else
-                        total(timers.graph, [w[2] for w in work])),
-            note=BF16_NOTES.get(name)))
+            library_ms=None if lib_ms is None else sum(lib_ms),
+            plan=[bf16_plan(name, args, device) for args, _ in calls[name]],
+            note=BF16_NOTES.get(name))
+        rows.append(row)
+        print("bf16_kernel " + json.dumps({
+            "name": name, "ms": row["ms"], "library_ms": row["library_ms"],
+            "ratio": None if lib_ms is None else row["ms"] / row["library_ms"],
+            "bound_ms": b_ms, "share": b_ms / row["ms"], "per_launch_ms": per_ms,
+            "per_launch_library_ms": lib_ms}))
     return rows
+
+
+def bf16_plan(name, args, device):
+    """The launch plan the wrapper makes for one call (None for the LIF)."""
+    import dataclasses
+
+    from repro_torch.kernels import goap_conv, wm_fc
+
+    if name == "wm_fc_matmul_bf16":
+        sp, w = args
+        return dataclasses.asdict(wm_fc.plan_wm_fc_bf16_launch(*sp.shape, w.shape[1]))
+    if name == "goap_conv_block_sparse_bf16":
+        blocks, _, x = args
+        return dataclasses.asdict(goap_conv.plan_goap_conv_bf16_launch(
+            *blocks.shape, *x.shape, n_sms=goap_conv._n_sms(device)))
+    return None
 
 
 def run_bf16_phase(device, timers, seed: int = SEED):

@@ -267,26 +267,53 @@ extern "C" int goap_conv_strips_f32(const float* blocks, const int* cols,
 // ---------------------------------------------------------------------------
 // bf16 form.
 //
-// The reference's kernel follows its operands' dtype: with bf16 tiles and
-// X' every tile slot's dot (BO x BK by BK x OI) is accumulated in f32,
-// rounded to bf16 (preferred_element_type=out.dtype) and added to the bf16
-// output with one more rounding, slot by slot in list order.  The served
-// conv never reaches this form (kernels/ops.py casts its operands to f32,
-// as the reference's ops.py does); it is the kernel's contract
+// Replaces the bf16 case of the same Pallas kernel: with bf16 tiles and X'
+// the reference accumulates every tile slot's dot (BO x BK by BK x OI) in
+// f32, rounds it to bf16 (preferred_element_type=out.dtype) and adds it to
+// the bf16 output with one more rounding, slot by slot in list order.  The
+// served conv never reaches this form (kernels/ops.py casts its operands to
+// f32, as the reference's ops.py does); it is the kernel's contract
 // (tests/test_kernels.py).  Plain version:
 // kernels/goap_conv.py::goap_conv_block_sparse_bf16_ref.
 //
-// Design: mma.sync m16n8k16 (mma_bf16.cuh) with OI on M, the oc-tile's BO
-// rows on N (the reference's BO = 8 is one n8 fragment) and BK on K in k16
-// steps.  A block of 4 warps owns one oc-tile x 64 OI columns (16 a warp).
-// For each tile slot it stages the tile (BO x BK, k contiguous) and the
-// slot's BK rows of X' transposed to (64 columns, BK), both zero-padded to
-// multiples of 8 rows and 16 k in shared memory, so a padded row or k adds
-// an exact zero; then every warp runs BK/16 k steps per n8 fragment into
-// f32 and rounds: out = bf16(out + bf16(dot)).  Shared rows are padded by
-// 8 values (conflict-free fragment loads).  A k-tile index outside X'
-// makes the oc-tile's rows NaN and is never read, as in the f32 form.
-// Bound on the H100: bytes of X' and of the output.
+// Bound on the H100: bytes of X' (K_pad x OI bf16, 22 MB a batch of 64 on
+// the paper model's three convs) and of the output.  The first form gave a
+// block one oc-tile x 64 columns, so every oc-tile's block fetched the same
+// X' columns again, restaged each slot's X' transposed with 2-byte loads,
+// and stored 2 bytes at a time.  Here, as in the f32 form above:
+//   1. a block owns every oc-tile x a strip of OI columns and walks strips
+//      b, b + grid, ... (the grid is what fits on the card at once);
+//   2. each strip (64, 128 or 256 columns), all K_pad rows k-major as X'
+//      lies, is copied into shared memory once with 16-byte cp.async while
+//      the previous strip is computed (two buffers), so X' leaves device
+//      memory once per launch; each k-tile's rows are padded to a multiple
+//      of 16 with zeros, and each 64 columns of a row are 128 bytes whose
+//      16-byte chunks are swizzled by the row, not padded, so conv2's 192
+//      rows fit twice at 256 columns;
+//   3. the block's tiles are copied once, in their own (BO, BK) k-contiguous
+//      layout, which is mma.sync's "col" B operand (ldmatrix.x2);
+//   4. up to 16 warps walk (oc-tile, MG x 16 columns) items, MG = 4 (2
+//      above BO = 16): per tile slot in list order, the A fragments of
+//      X'^T come from the k-major strip by ldmatrix.x4.trans (no
+//      transposing pass), BK/16 mma.sync m16n8k16 steps per n8 fragment of
+//      BO (OI on M, BO on N) into f32, MG independent chains on one B
+//      load; then out = bf16(out + bf16(dot)), two outputs an instruction
+//      pair (add_tile_bf16x2);
+//   5. each item's fragments go into an output tile in shared memory by
+//      stmatrix.trans, and the tile leaves as 16-byte stores.
+// What bounds it now (phase split, PERF.md): the first strip's load, which
+// nothing overlaps (most blocks walk one or two strips), and the A fragment
+// reads, 512 bytes of shared memory per mma.  Sharing A fragments across
+// the oc-tiles of a slot, deeper strip rings, per-k-tile mbarriers (fed by
+// cp.async, or by TMA boxes with the same swizzle), row-by-row bulk copies
+// and output rows on M all measured slower or no faster.
+// Padded rows and k add exact zeros.  A k-tile index outside X' makes its
+// oc-tile's rows NaN and is never read.  The ragged edge of OI is masked
+// (zero-filled copies, masked stores); operands whose rows are not 16-byte
+// aligned are staged or stored element by element.  The wrapper plans the
+// strip, grid and shared memory (kernels/goap_conv.py::
+// plan_goap_conv_bf16_launch).  Within a slot mma.sync sums in its own
+// order: the same bits where the sum is exact (mma_bf16.cuh).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -295,82 +322,213 @@ extern "C" int goap_conv_strips_f32(const float* blocks, const int* cols,
 
 namespace {
 
-constexpr int BF_COLS = 64;              // OI columns per block (4 warps x m16)
-constexpr int BF_THREADS = 128;
 constexpr int BF_MAX_N = 4;              // n8 fragments: BO up to 32
+constexpr int BF_MAX_WARPS = 16;
+constexpr int BF_BOX = 64;               // X' columns a 128-byte row of a strip
 
-__global__ void __launch_bounds__(BF_THREADS)
+__host__ __device__ constexpr int bf_pad16(int v) { return (v + 15) & ~15; }
+
+// 16-column groups a warp item computes together: 4 up to two n8
+// fragments of BO, else 2 (the registers of a 512-thread block).
+__host__ __device__ constexpr int bf_groups(int bo) { return bo <= 16 ? 4 : 2; }
+
+// Shared memory of one block (bytes): two strips [n_k][strip / 64][bkp][64],
+// the tiles [R * MT][bop][bkp + 8] and the output tile [R * bop][strip + 8]
+// in bf16, then the tile indices.
+__host__ __device__ constexpr long long bf_smem(int r, int mt, int bo, int bk, int n_k,
+                                                int strip) {
+    return 2LL * (2LL * n_k * bf_pad16(bk) * strip +
+                  (long long)r * mt * ((bo + 7) & ~7) * (bf_pad16(bk) + 8) +
+                  (long long)r * ((bo + 7) & ~7) * (strip + 8)) +
+           4LL * r * mt;
+}
+
+// A warp item is one oc-tile x MG groups of 16 columns: MG independent mma
+// chains that hide each other's latency, and one B fragment load for all.
+template <int NF>
+__global__ void __launch_bounds__(32 * BF_MAX_WARPS)
 goap_conv_bf16_kernel(const __nv_bfloat16* __restrict__ blocks, const int* __restrict__ cols,
                       const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out,
-                      int max_tiles, int bo, int bk, int n_k_tiles, int oi) {
-    extern __shared__ __align__(16) __nv_bfloat16 bf_smem[];
-    const int bkp = (bk + 15) & ~15, bop = (bo + 7) & ~7, ld = bkp + 8;
-    __nv_bfloat16* xs = bf_smem;                     // [64 columns][ld]
-    __nv_bfloat16* ws = xs + BF_COLS * ld;           // [bop rows][ld]
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, q = lane & 3, n_frag = bop >> 3;
-    const int r = blockIdx.y, o0 = blockIdx.x * BF_COLS;
-    const int* tile_cols = cols + (size_t)r * max_tiles;
+                      int n_oc_tiles, int max_tiles, int bo, int bk, int n_k_tiles, int oi,
+                      int strip) {
+    constexpr int MG = bf_groups(8 * NF);
+    extern __shared__ __align__(16) unsigned char bf_smem_raw[];
+    const int bkp = bf_pad16(bk), bop = 8 * NF, ldx = strip + 8, ldw = bkp + 8;
+    const int n_tiles = n_oc_tiles * max_tiles, n_box = strip / BF_BOX;
+    const unsigned strip_bytes = 2u * n_k_tiles * bkp * strip;
+    unsigned char* xs = bf_smem_raw;                                   // [2][n_k][n_box][bkp][64]
+    __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(xs + 2 * strip_bytes);  // [tiles][bop][ldw]
+    __nv_bfloat16* os = ws + (size_t)n_tiles * bop * ldw;              // [R * bop][ldx]
+    int* cs = reinterpret_cast<int*>(os + (size_t)n_oc_tiles * bop * ldx);  // [R][MT]
+    const unsigned xs_s = repro::smem_addr(xs);
+    const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
+    const int n_warps = nthr >> 5, groups = strip / (16 * MG);
+    const int n_items = n_oc_tiles * groups;
+    const int n_strips = (oi + strip - 1) / strip;
+    const bool x_vec = (oi & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const bool o_vec = (oi & 7) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    const bool w_vec = (bk & 7) == 0 && (reinterpret_cast<uintptr_t>(blocks) & 15) == 0;
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 
-    bool bad = false;
-    for (int t = 0; t < max_tiles; ++t) bad |= tile_cols[t] < 0 || tile_cols[t] >= n_k_tiles;
+    // A strip in shared memory: k-tile kt, 64 columns b, row kk < bkp, 128
+    // bytes a row, its 16-byte chunks swizzled by the row (chunk j of row kk
+    // at j ^ (kk % 8)), so ldmatrix reads 8 rows of one chunk from 8
+    // distinct banks without padding the rows (a strip of 256 columns fits
+    // conv2's 192 rows twice).
+    auto x_offset = [&](int kt, int kk, int c) {
+        return (unsigned)(((kt * n_box + (c >> 6)) * bkp + kk) * 128 +
+                          ((((c >> 3) & 7) ^ (kk & 7)) << 4) + ((c & 7) << 1));
+    };
 
-    float acc[BF_MAX_N][4];                          // bf16 values
+    // one strip, every k-tile's rows padded to bkp, into buffer buf, as one
+    // commit group; columns past OI and rows past BK zero-filled.  The
+    // copies go 16 bytes a thread: strip / 8 chunks a row divide the block,
+    // so each thread keeps one column chunk and steps through the rows.
+    const int chunks = strip >> 3, c_own = (tid & (chunks - 1)) << 3;
+    const int row_first = tid / chunks, row_step = nthr / chunks;
+    auto issue = [&](int s, int buf) {
+        unsigned char* dst0 = xs + buf * strip_bytes;
+        const int col0 = s * strip, width = min(strip, oi - col0);
+        const __nv_bfloat16* src0 = x + col0 + c_own;
+        int kt = row_first / bkp, kk = row_first - kt * bkp;
+        for (int row = row_first; row < n_k_tiles * bkp; row += row_step) {
+            unsigned char* dst = dst0 + x_offset(kt, kk, c_own);
+            const __nv_bfloat16* src = src0 + (size_t)(kt * bk + kk) * oi;
+            if (x_vec) {
+                const bool in = kk < bk && c_own < width;
+                repro::cp_async16(dst, in ? src : x, in ? 16 : 0);
+            } else {
+                __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
 #pragma unroll
-    for (int j = 0; j < BF_MAX_N; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
+                for (int cc = 0; cc < 8; ++cc)
+                    d[cc] = (kk < bk && c_own + cc < width) ? src[cc] : zero;
+            }
+            for (kk += row_step; kk >= bkp; kk -= bkp) ++kt;
+        }
+        repro::cp_async_commit();
+    };
 
-    for (int t = 0; t < max_tiles && !bad; ++t) {
-        const __nv_bfloat16* tile = blocks + ((size_t)r * max_tiles + t) * bo * bk;
-        const __nv_bfloat16* xk = x + (size_t)tile_cols[t] * bk * oi;
-        for (int e = tid; e < bop * bkp; e += BF_THREADS) {
-            const int n = e / bkp, k = e % bkp;
-            ws[n * ld + k] = (n < bo && k < bk) ? tile[n * bk + k] : zero;
+    // the tiles, once per block, rows padded to bop and k to bkp with
+    // zeros, and their indices, in flight with the first strip
+    const int tile_chunks = bkp >> 3;
+    for (int e = tid; e < n_tiles * bop * tile_chunks; e += nthr) {
+        const int k = (e % tile_chunks) << 3, rn = e / tile_chunks;
+        const int n = rn % bop, rt = rn / bop;
+        __nv_bfloat16* dst = ws + ((size_t)rt * bop + n) * ldw + k;
+        const __nv_bfloat16* src = blocks + ((size_t)rt * bo + n) * bk + k;
+        if (w_vec && n < bo && k < bk) {
+            repro::cp_async16(dst, src, 16);
+        } else {
+#pragma unroll
+            for (int cc = 0; cc < 8; ++cc) dst[cc] = (n < bo && k + cc < bk) ? src[cc] : zero;
         }
-        for (int e = tid; e < bkp * BF_COLS; e += BF_THREADS) {
-            const int k = e / BF_COLS, m = e % BF_COLS;
-            const int o = o0 + m;
-            xs[m * ld + k] = (k < bk && o < oi) ? xk[(size_t)k * oi + o] : zero;
+    }
+    for (int e = tid; e < n_tiles; e += nthr) repro::cp_async4(cs + e, cols + e, 4);
+    // the block walks strips blockIdx.x, + gridDim.x, ...: the next strip
+    // is in flight while one is computed
+    int s = blockIdx.x;
+    if (s < n_strips) issue(s, 0);
+    else repro::cp_async_commit();
+
+    const unsigned ws_s = repro::smem_addr(ws), os_s = repro::smem_addr(os);
+    // lane offsets of the ldmatrix / stmatrix rows: A's k row and 16-column
+    // group (its swizzled chunk is fixed: kk is a multiple of 16), B's
+    const int a_row = (lane & 7) + (lane >> 4) * 8, a_col = ((lane >> 3) & 1) * 8;
+    const int b_row = lane & 7, b_col = ((lane >> 3) & 1) * 8;
+    const unsigned nan2 = 0x7fc07fc0u;       // two bf16 NaNs, as the plain version's
+    for (int it = 0; s < n_strips; ++it, s += gridDim.x) {
+        const int buf = it & 1;
+        repro::cp_async_wait<0>();
+        __syncthreads();          // strip s (and the tiles) landed; the other buffer and os are free
+        if (s + (int)gridDim.x < n_strips) issue(s + gridDim.x, buf ^ 1);
+        const int col0 = s * strip, width = min(strip, oi - col0);
+        const unsigned xb_s = xs_s + buf * strip_bytes;
+        for (int item = warp; item < n_items; item += n_warps) {
+            const int r = item / groups, m0 = (item - r * groups) * (16 * MG);
+            if (m0 >= width) continue;
+            const int* tile_cols = cs + r * max_tiles;
+            // a k-tile index outside X' poisons the oc-tile (the lanes vote)
+            bool bad = false;
+            for (int t0 = 0; t0 < max_tiles; t0 += 32) {
+                const int c = t0 + lane < max_tiles ? tile_cols[t0 + lane] : 0;
+                bad |= __any_sync(0xffffffffu, c < 0 || c >= n_k_tiles);
+            }
+            // bf16 accumulators packed in pairs: [g][j][0] = C rows g, [1] = g + 8
+            unsigned acc[MG][NF][2];
+#pragma unroll
+            for (int g = 0; g < MG; ++g)
+#pragma unroll
+                for (int j = 0; j < NF; ++j) acc[g][j][0] = acc[g][j][1] = bad ? nan2 : 0u;
+            unsigned xa[MG];
+#pragma unroll
+            for (int g = 0; g < MG; ++g) xa[g] = xb_s + x_offset(0, a_row, m0 + g * 16 + a_col);
+#pragma unroll 2
+            for (int t = 0; t < (bad ? 0 : max_tiles); ++t) {
+                const unsigned xt = 128u * tile_cols[t] * n_box * bkp;
+                const unsigned wb =
+                    ws_s + 2u * (((r * max_tiles + t) * bop + b_row) * ldw + b_col);
+                float dot[MG][NF][4];
+                for (int kk = 0; kk < bkp; kk += 16) {
+                    unsigned b[NF][2], a[MG][4];
+#pragma unroll
+                    for (int j = 0; j < NF; ++j) repro::ldmatrix_x2(b[j], wb + 2u * (j * 8 * ldw + kk));
+#pragma unroll
+                    for (int g = 0; g < MG; ++g)
+                        repro::ldmatrix_x4_trans(a[g], xa[g] + xt + 128u * kk);
+#pragma unroll
+                    for (int g = 0; g < MG; ++g)
+#pragma unroll
+                        for (int j = 0; j < NF; ++j) {
+                            if (kk == 0) repro::mma_bf16_16816_zero(dot[g][j], a[g], b[j]);
+                            else repro::mma_bf16_16816(dot[g][j], a[g], b[j]);
+                        }
+                }
+#pragma unroll
+                for (int g = 0; g < MG; ++g)
+#pragma unroll
+                    for (int j = 0; j < NF; ++j) {
+                        acc[g][j][0] = repro::add_tile_bf16x2(acc[g][j][0], dot[g][j][0], dot[g][j][1]);
+                        acc[g][j][1] = repro::add_tile_bf16x2(acc[g][j][1], dot[g][j][2], dot[g][j][3]);
+                    }
+            }
+#pragma unroll
+            for (int g = 0; g < MG; ++g)
+#pragma unroll
+                for (int j = 0; j < NF; ++j)
+                    repro::stmatrix_x2_trans(
+                        os_s + 2u * ((r * bop + j * 8 + b_row) * ldx + m0 + g * 16 + b_col),
+                        acc[g][j][0], acc[g][j][1]);
         }
-        __syncthreads();
-        float dot[BF_MAX_N][4];
-#pragma unroll
-        for (int j = 0; j < BF_MAX_N; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dot[j][c] = 0.0f;
-        for (int kk = 0; kk < bkp; kk += 16) {
-            const __nv_bfloat16* ap = xs + (warp * 16 + g) * ld + kk + 2 * q;
-            const unsigned a[4] = {repro::ld_pair(ap), repro::ld_pair(ap + 8 * ld),
-                                   repro::ld_pair(ap + 8), repro::ld_pair(ap + 8 * ld + 8)};
-#pragma unroll
-            for (int j = 0; j < BF_MAX_N; ++j) {
-                if (j < n_frag) {
-                    const __nv_bfloat16* bp = ws + (j * 8 + g) * ld + kk + 2 * q;
-                    const unsigned b[2] = {repro::ld_pair(bp), repro::ld_pair(bp + 8)};
-                    repro::mma_bf16_16816(dot[j], a, b);
+        __syncthreads();          // the output tile is complete
+        // rows r * bo + n (n < bo) x [col0, col0 + width), 16 bytes a thread
+        int r = row_first / bo, n = row_first - r * bo;
+        for (int row = row_first; row < n_oc_tiles * bo; row += row_step) {
+            if (c_own < width) {
+                const __nv_bfloat16* src = os + (size_t)(r * bop + n) * ldx + c_own;
+                __nv_bfloat16* dst = out + (size_t)row * oi + col0 + c_own;
+                if (o_vec) {
+                    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+                } else {
+                    for (int cc = 0; cc < 8 && c_own + cc < width; ++cc) dst[cc] = src[cc];
                 }
             }
-        }
-#pragma unroll
-        for (int j = 0; j < BF_MAX_N; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[j][c] = repro::add_tile_bf16(acc[j][c], dot[j][c]);
-        __syncthreads();                             // staging free for the next slot
-    }
-    const __nv_bfloat16 nan = __float2bfloat16_rn(__int_as_float(0x7fc00000));
-#pragma unroll
-    for (int j = 0; j < BF_MAX_N; ++j) {
-        if (j >= n_frag) break;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int o = o0 + warp * 16 + g + (c >> 1) * 8;   // M: OI column
-            const int n = j * 8 + 2 * q + (c & 1);              // N: row of the oc-tile
-            if (o < oi && n < bo)
-                out[((size_t)r * bo + n) * oi + o] = bad ? nan : __float2bfloat16_rn(acc[j][c]);
+            for (n += row_step; n >= bo; n -= bo) ++r;
         }
     }
+    repro::cp_async_wait<0>();    // no copy outlives the block
+}
+
+template <int NF>
+int launch_bf16(const __nv_bfloat16* blocks, const int* cols, const __nv_bfloat16* x,
+                __nv_bfloat16* out, int n_oc_tiles, int max_tiles, int bo, int bk,
+                int n_k_tiles, int oi, int strip, int grid, int threads, int smem_bytes,
+                cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        goap_conv_bf16_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    goap_conv_bf16_kernel<NF><<<grid, threads, smem_bytes, stream>>>(
+        blocks, cols, x, out, n_oc_tiles, max_tiles, bo, bk, n_k_tiles, oi, strip);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -378,18 +536,23 @@ goap_conv_bf16_kernel(const __nv_bfloat16* __restrict__ blocks, const int* __res
 extern "C" int goap_conv_bf16(const __nv_bfloat16* blocks, const int* cols,
                               const __nv_bfloat16* x, __nv_bfloat16* out, int n_oc_tiles,
                               int max_tiles, int bo, int bk, int n_k_tiles, int oi,
+                              int strip, int grid, int threads, int smem_bytes,
                               void* stream) {
-    if (n_oc_tiles <= 0 || n_oc_tiles > 65535 || max_tiles < 0 || bo <= 0 ||
-        bo > 8 * BF_MAX_N || bk <= 0 || oi <= 0)
+    if (n_oc_tiles <= 0 || max_tiles < 0 || bo <= 0 || bo > 8 * BF_MAX_N || bk <= 0 ||
+        n_k_tiles < 0 || oi <= 0 || strip < BF_BOX || strip > 4 * BF_BOX ||
+        (strip & (strip - 1)) || grid <= 0 || threads < 32 || threads % 32 ||
+        threads > 32 * BF_MAX_WARPS || smem_bytes > MAX_SMEM ||
+        smem_bytes < bf_smem(n_oc_tiles, max_tiles, bo, bk, n_k_tiles, strip))
         return static_cast<int>(cudaErrorInvalidValue);
-    const int bkp = (bk + 15) & ~15, bop = (bo + 7) & ~7;
-    const size_t smem = sizeof(__nv_bfloat16) * (size_t)(BF_COLS + bop) * (bkp + 8);
-    if (smem > (size_t)MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(
-        goap_conv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((oi + BF_COLS - 1) / BF_COLS, n_oc_tiles);
-    goap_conv_bf16_kernel<<<grid, BF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-        blocks, cols, x, out, max_tiles, bo, bk, n_k_tiles, oi);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    switch ((bo + 7) / 8) {
+        case 1: return launch_bf16<1>(blocks, cols, x, out, n_oc_tiles, max_tiles, bo, bk,
+                                      n_k_tiles, oi, strip, grid, threads, smem_bytes, st);
+        case 2: return launch_bf16<2>(blocks, cols, x, out, n_oc_tiles, max_tiles, bo, bk,
+                                      n_k_tiles, oi, strip, grid, threads, smem_bytes, st);
+        case 3: return launch_bf16<3>(blocks, cols, x, out, n_oc_tiles, max_tiles, bo, bk,
+                                      n_k_tiles, oi, strip, grid, threads, smem_bytes, st);
+        default: return launch_bf16<4>(blocks, cols, x, out, n_oc_tiles, max_tiles, bo, bk,
+                                       n_k_tiles, oi, strip, grid, threads, smem_bytes, st);
+    }
 }

@@ -214,23 +214,44 @@ extern "C" int wm_fc_chunked_f32(const float* s, const float* w, float* out,
 // ---------------------------------------------------------------------------
 // bf16 form.
 //
-// The reference's kernel follows its operands' dtype: with bf16 weights
-// (and the spikes cast to them) each 128-input tile's dot is accumulated
-// in f32, rounded to bf16 (preferred_element_type=out.dtype) and added to
-// the bf16 output with one more rounding.  One bf16 matmul rounds once, so
-// it computes another function; the plain version is
-// kernels/wm_fc.py::wm_fc_matmul_bf16_ref.
+// Replaces the bf16 case of the same Pallas kernel: with bf16 weights (and
+// the spikes cast to them) the reference accumulates each 128-input tile's
+// dot in f32, rounds it to bf16 (preferred_element_type=out.dtype) and adds
+// it to the bf16 output with one more rounding, tiles in ascending order.
+// One bf16 matmul rounds once, so it computes another function; the plain
+// version is kernels/wm_fc.py::wm_fc_matmul_bf16_ref.
 //
-// Design: mma.sync m16n8k16 (mma_bf16.cuh) with batch rows on M, outputs
-// on N and inputs on K.  A block of 4 warps owns 64 batch rows x 32
-// outputs; each warp 16 rows x 4 n8 fragments.  Per 128-input tile the
-// block stages its spikes (64 x 128, row-major) and its weights transposed
-// to (32 outputs, 128 inputs) in shared memory, zero-filled past B, IN and
-// OUT (OUT = 11 pads N to 16 with zeros), runs 8 k16 steps into f32
-// fragments, then rounds: out = bf16(out + bf16(dot)).  Rows are padded by
-// 8 values, so the fragment loads of a warp hit 32 distinct banks.
-// Bound on the H100: bytes (the products are a few MFLOP for tensor cores
-// that do 989 TFLOP/s); this first form stages with plain loads.
+// Bound on the H100: bytes (1.4 MB a batch of 64 on the paper model, under
+// half a microsecond; the products are a few MFLOP for tensor cores that do
+// 989 TFLOP/s), so in practice the latency of getting the operands from L2
+// into enough SMs.  The first form gave a block 64 rows x 32 outputs (32
+// blocks on FC1), walked IN's tiles one after another and staged them with
+// 2-byte loads and a transposing store.  Here:
+//   1. a block owns ROWS (16 or 32) batch rows x BN (16, 32 or 64) outputs,
+//      and its SPLIT warps (up to 8) take one reference tile each: the tile
+//      dots are independent (each starts at zero), so they run in parallel
+//      and only their rounded sum is ordered;
+//   2. each warp stages its tile's spikes (ROWS x 128, row-major) and
+//      weights (128 x BN, W's own row-major layout) with 16-byte cp.async,
+//      in two halves of 64 inputs, so the second half is in flight while
+//      the first runs on the tensor cores (mma.sync m16n8k16, f32
+//      fragments); A fragments by ldmatrix.x4, B fragments straight from
+//      W's layout by ldmatrix.x4.trans, no transposing pass;
+//   3. each warp leaves its f32 dot in shared memory, and after a barrier
+//      the block adds the SPLIT tiles to its bf16 accumulators in ascending
+//      tile order: out = bf16(out + bf16(dot_t));
+//      IN beyond SPLIT tiles takes further rounds;
+//   4. the tile leaves as 16-byte stores.
+// Rows, outputs and inputs past B, OUT and IN are zero-filled.  Operands
+// whose rows are not 16-byte aligned (OUT = 11, an odd offset) are staged
+// element by element instead.  The wrapper plans the tiles
+// (kernels/wm_fc.py::plan_wm_fc_bf16_launch); the batch lies on grid x.
+// What bounds it now (PERF.md): a launch's latency chain (load, dot,
+// ordered sum, store) over a card-wide ~2.5 us floor; FC1 runs 128 blocks
+// of 16 rows x 32 outputs, which beat 256 blocks of 16 outputs (those read
+// each row's spikes from L2 twice as often).
+// Within a tile mma.sync sums in its own order: the same bits where the
+// sum is exact ({0, 1} spikes against bf16 weights; mma_bf16.cuh).
 // ---------------------------------------------------------------------------
 
 #include <cuda_bf16.h>
@@ -239,81 +260,191 @@ extern "C" int wm_fc_chunked_f32(const float* s, const float* w, float* out,
 
 namespace {
 
-constexpr int BF_ROWS = 64;              // batch rows per block (4 warps x 16)
-constexpr int BF_OUTS = 32;              // outputs per block (4 n8 fragments)
 constexpr int BF_TILE = 128;             // inputs per reference tile (block_in)
-constexpr int BF_LD = BF_TILE + 8;       // bf16 values per shared row
-constexpr int BF_THREADS = 128;
+constexpr int BF_HALF = BF_TILE / 2;     // inputs per cp.async group
+constexpr int BF_LDA = BF_TILE + 8;      // bf16 per staged spike row (17 x 16 B)
+constexpr int BF_MAX_SPLIT = 8;          // warps (reference tiles) per block
 
-__global__ void __launch_bounds__(BF_THREADS)
+__host__ __device__ constexpr int bf_ldb(int bn) { return bn + 8; }   // odd x 16 B
+__host__ __device__ constexpr int bf_ldd(int bn) { return bn + 8; }   // f32 per dot row
+
+// Shared memory of one block: per warp its spikes and weights, then the
+// warps' dots [split][rows][ldd] (f32) and the accumulators.
+__host__ __device__ constexpr int bf_smem(int rows, int bn, int split) {
+    return split * 2 * (rows * BF_LDA + BF_TILE * bf_ldb(bn)) +
+           4 * (split * rows * bf_ldd(bn) + rows * bn);
+}
+
+template <int MF, int NF>
+__global__ void __launch_bounds__(32 * BF_MAX_SPLIT)
 wm_fc_bf16_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ out, int batch, int din, int dout) {
-    __shared__ __align__(16) __nv_bfloat16 as[BF_ROWS * BF_LD];   // [row][input]
-    __shared__ __align__(16) __nv_bfloat16 bs[BF_OUTS * BF_LD];   // [output][input]
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+                  __nv_bfloat16* __restrict__ out, int batch, int din, int dout, int split) {
+    constexpr int ROWS = 16 * MF, BN = 8 * NF, LDB = bf_ldb(BN), LDD = bf_ldd(BN);
+    constexpr int WARP_ELEMS = ROWS * BF_LDA + BF_TILE * LDB;
+    extern __shared__ __align__(16) unsigned char bf_smem_raw[];
+    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(bf_smem_raw);
+    float* dots = reinterpret_cast<float*>(stage + split * WARP_ELEMS);   // [split][ROWS][LDD]
+    float* accs = dots + split * ROWS * LDD;                              // [ROWS][BN]
+    const int tid = threadIdx.x, nthr = blockDim.x, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, q = lane & 3;
-    const int row0 = blockIdx.x * BF_ROWS, col0 = blockIdx.y * BF_OUTS;
+    const int row0 = blockIdx.x * ROWS, col0 = blockIdx.y * BN;
+    const int n_tiles = (din + BF_TILE - 1) / BF_TILE;
+    const bool s_vec = (din & 7) == 0 && (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+    const bool w_vec = (dout & 7) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    const bool o_vec = (dout & 7) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+    __nv_bfloat16* as = stage + warp * WARP_ELEMS;                        // [ROWS][BF_LDA]
+    __nv_bfloat16* bs = as + ROWS * BF_LDA;                               // [BF_TILE][LDB]
+    const unsigned as_s = repro::smem_addr(as), bs_s = repro::smem_addr(bs);
     const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    float acc[4][4];                         // bf16 values: [n fragment][c]
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][c] = 0.0f;
 
-    for (int i0 = 0; i0 < din; i0 += BF_TILE) {
-        for (int e = tid; e < BF_ROWS * BF_TILE; e += BF_THREADS) {
-            const int r = e / BF_TILE, k = e % BF_TILE;
+    // inputs [i0 + h*64, + 64) of the warp's tile: ROWS spike rows and 64
+    // weight rows, one commit group; zero past B, IN and OUT
+    auto stage_half = [&](int i0, int h) {
+        const int k0 = h * BF_HALF;
+        for (int e = lane; e < ROWS * (BF_HALF / 8); e += 32) {
+            const int r = e / (BF_HALF / 8), k = k0 + (e % (BF_HALF / 8)) * 8;
             const int gr = row0 + r, gk = i0 + k;
-            as[r * BF_LD + k] = (gr < batch && gk < din) ? s[(size_t)gr * din + gk] : zero;
-        }
-        for (int e = tid; e < BF_OUTS * BF_TILE; e += BF_THREADS) {
-            const int k = e / BF_OUTS, n = e % BF_OUTS;
-            const int gk = i0 + k, gn = col0 + n;
-            bs[n * BF_LD + k] = (gk < din && gn < dout) ? w[(size_t)gk * dout + gn] : zero;
-        }
-        __syncthreads();
-        float dot[4][4];
+            __nv_bfloat16* dst = as + r * BF_LDA + k;
+            const __nv_bfloat16* src = s + (size_t)gr * din + gk;
+            if (s_vec) {
+                const bool in = gr < batch && gk < din;
+                repro::cp_async16(dst, in ? src : s, in ? 16 : 0);
+            } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dot[j][c] = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < BF_TILE; kk += 16) {
-            const __nv_bfloat16* ap = as + (warp * 16 + g) * BF_LD + kk + 2 * q;
-            const unsigned a[4] = {repro::ld_pair(ap), repro::ld_pair(ap + 8 * BF_LD),
-                                   repro::ld_pair(ap + 8), repro::ld_pair(ap + 8 * BF_LD + 8)};
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const __nv_bfloat16* bp = bs + (j * 8 + g) * BF_LD + kk + 2 * q;
-                const unsigned b[2] = {repro::ld_pair(bp), repro::ld_pair(bp + 8)};
-                repro::mma_bf16_16816(dot[j], a, b);
+                for (int c = 0; c < 8; ++c)
+                    dst[c] = (gr < batch && gk + c < din) ? src[c] : zero;
             }
         }
+        for (int e = lane; e < BF_HALF * (BN / 8); e += 32) {
+            const int k = k0 + e / (BN / 8), n = (e % (BN / 8)) * 8;
+            const int gk = i0 + k, gn = col0 + n;
+            __nv_bfloat16* dst = bs + k * LDB + n;
+            const __nv_bfloat16* src = w + (size_t)gk * dout + gn;
+            if (w_vec) {
+                const bool in = gk < din && gn < dout;
+                repro::cp_async16(dst, in ? src : w, in ? 16 : 0);
+            } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+                for (int c = 0; c < 8; ++c)
+                    dst[c] = (gk < din && gn + c < dout) ? src[c] : zero;
+            }
+        }
+        repro::cp_async_commit();
+    };
+
+    // the k16 steps of inputs [k_lo, k_lo + 64) of the staged tile into dot
+    auto mma_steps = [&](int k_lo, float (&dot)[MF][NF][4]) {
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[j][c] = repro::add_tile_bf16(acc[j][c], dot[j][c]);
-        __syncthreads();                     // the tiles are free for the next inputs
+        for (int kk = k_lo; kk < k_lo + BF_HALF; kk += 16) {
+            unsigned a[MF][4];
+#pragma unroll
+            for (int mi = 0; mi < MF; ++mi)
+                repro::ldmatrix_x4(a[mi], as_s + 2 * ((mi * 16 + (lane & 15)) * BF_LDA +
+                                                      kk + (lane >> 4) * 8));
+#pragma unroll
+            for (int jp = 0; jp < NF / 2; ++jp) {
+                unsigned b[4];
+                repro::ldmatrix_x4_trans(b, bs_s + 2 * ((kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                                        LDB + jp * 16 + (lane >> 4) * 8));
+                const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+#pragma unroll
+                for (int mi = 0; mi < MF; ++mi) {
+                    repro::mma_bf16_16816(dot[mi][2 * jp], a[mi], b0);
+                    repro::mma_bf16_16816(dot[mi][2 * jp + 1], a[mi], b1);
+                }
+            }
+        }
+    };
+
+    for (int e = tid; e < ROWS * BN; e += nthr) accs[e] = 0.0f;
+    for (int t0 = 0; t0 < n_tiles; t0 += split) {
+        const int t = t0 + warp;
+        if (t < n_tiles) {
+            const int i0 = t * BF_TILE;
+            __syncwarp();                    // the warp's last ldmatrix is done
+            stage_half(i0, 0);
+            stage_half(i0, 1);
+            float dot[MF][NF][4];
+#pragma unroll
+            for (int mi = 0; mi < MF; ++mi)
+#pragma unroll
+                for (int j = 0; j < NF; ++j)
+#pragma unroll
+                    for (int c = 0; c < 4; ++c) dot[mi][j][c] = 0.0f;
+            repro::cp_async_wait<1>();
+            __syncwarp();                    // the first half has landed
+            mma_steps(0, dot);
+            repro::cp_async_wait<0>();
+            __syncwarp();
+            mma_steps(BF_HALF, dot);
+            float* dw = dots + warp * ROWS * LDD;
+#pragma unroll
+            for (int mi = 0; mi < MF; ++mi)
+#pragma unroll
+                for (int j = 0; j < NF; ++j)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        *reinterpret_cast<float2*>(dw + (mi * 16 + g + 8 * h) * LDD + j * 8 + 2 * q) =
+                            make_float2(dot[mi][j][2 * h], dot[mi][j][2 * h + 1]);
+        }
+        __syncthreads();                     // every tile's dot is in
+        const int active = min(split, n_tiles - t0);
+        for (int e = tid; e < ROWS * BN; e += nthr) {
+            const int r = e / BN, c = e % BN;
+            float acc = accs[e];
+            for (int u = 0; u < active; ++u)
+                acc = repro::add_tile_bf16(acc, dots[(u * ROWS + r) * LDD + c]);
+            accs[e] = acc;
+        }
+        __syncthreads();                     // dots free for the next round
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-            const int r = row0 + warp * 16 + g + (c >> 1) * 8;
-            const int n = col0 + j * 8 + 2 * q + (c & 1);
-            if (r < batch && n < dout) out[(size_t)r * dout + n] = __float2bfloat16_rn(acc[j][c]);
+    for (int e = tid; e < ROWS * (BN / 8); e += nthr) {
+        const int r = e / (BN / 8), n = (e % (BN / 8)) * 8;
+        const int gr = row0 + r, gn = col0 + n;
+        if (gr >= batch || gn >= dout) continue;
+        const float* a = accs + r * BN + n;
+        __nv_bfloat16* dst = out + (size_t)gr * dout + gn;
+        if (o_vec) {
+            *reinterpret_cast<uint4*>(dst) = make_uint4(
+                repro::pack_bf16(a[0], a[1]), repro::pack_bf16(a[2], a[3]),
+                repro::pack_bf16(a[4], a[5]), repro::pack_bf16(a[6], a[7]));
+        } else {
+            for (int c = 0; c < 8 && gn + c < dout; ++c) dst[c] = __float2bfloat16_rn(a[c]);
         }
     }
+}
+
+template <int MF, int NF>
+int launch_bf16(const __nv_bfloat16* s, const __nv_bfloat16* w, __nv_bfloat16* out,
+                int batch, int din, int dout, int split, int smem_bytes,
+                cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        wm_fc_bf16_kernel<MF, NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((batch + 16 * MF - 1) / (16 * MF), (dout + 8 * NF - 1) / (8 * NF));
+    wm_fc_bf16_kernel<MF, NF><<<grid, 32 * split, smem_bytes, stream>>>(
+        s, w, out, batch, din, dout, split);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int wm_fc_bf16(const __nv_bfloat16* s, const __nv_bfloat16* w, __nv_bfloat16* out,
-                          int batch, int din, int dout, void* stream) {
-    if (batch <= 0 || din < 0 || dout <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((batch + BF_ROWS - 1) / BF_ROWS, (dout + BF_OUTS - 1) / BF_OUTS);
-    if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    wm_fc_bf16_kernel<<<grid, BF_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        s, w, out, batch, din, dout);
-    return static_cast<int>(cudaGetLastError());
+                          int batch, int din, int dout, int rows, int out_tile, int split,
+                          int threads, int smem_bytes, void* stream) {
+    if (batch <= 0 || din < 0 || dout <= 0 || split < 1 || split > BF_MAX_SPLIT ||
+        threads != 32 * split || (rows != 16 && rows != 32) ||
+        (out_tile != 16 && out_tile != 32 && out_tile != 64) ||
+        smem_bytes < bf_smem(rows, out_tile, split) || smem_bytes > MAX_SMEM ||
+        (dout + out_tile - 1) / out_tile > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int mf = rows / 16, nf = out_tile / 8;
+#define REPRO_FC_BF16(M, N)                                                          \
+    if (mf == M && nf == N)                                                          \
+        return launch_bf16<M, N>(s, w, out, batch, din, dout, split, smem_bytes, st);
+    REPRO_FC_BF16(1, 2) REPRO_FC_BF16(1, 4) REPRO_FC_BF16(1, 8)
+    REPRO_FC_BF16(2, 2) REPRO_FC_BF16(2, 4) REPRO_FC_BF16(2, 8)
+#undef REPRO_FC_BF16
+    return static_cast<int>(cudaErrorInvalidValue);
 }

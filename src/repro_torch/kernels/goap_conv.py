@@ -23,9 +23,12 @@ bf16 tiles and X' run the reference's bf16 form,
 ``goap_conv_bf16`` in ``csrc/goap_conv.cu``, on the tensor cores): each
 tile slot's dot accumulated in f32, rounded to bf16 and added to the bf16
 output with one more rounding, slot by slot
-(:func:`goap_conv_block_sparse_bf16_ref`).  The served conv never reaches
-it (``ops.goap_conv_op`` casts to f32, as the reference's does); it is the
-kernel's contract.
+(:func:`goap_conv_block_sparse_bf16_ref`).  Its kernel is laid out as the
+f32 one: a block owns every oc-tile x a strip of X' columns, copied once
+with 16-byte ``cp.async`` while the previous strip runs through
+``mma.sync``; :func:`plan_goap_conv_bf16_launch` picks the strip, grid and
+shared memory.  The served conv never reaches it (``ops.goap_conv_op``
+casts to f32, as the reference's does); it is the kernel's contract.
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ import torch
 from repro_torch.core.goap import matmul_rounded
 from repro_torch.kernels.launches import count_launch
 
-__all__ = ["ConvLaunch", "plan_goap_conv_launch", "goap_conv_block_sparse",
+__all__ = ["ConvLaunch", "plan_goap_conv_launch", "ConvBf16Launch",
+           "plan_goap_conv_bf16_launch", "goap_conv_block_sparse",
            "goap_conv_block_sparse_ref", "goap_conv_block_sparse_inorder",
            "goap_conv_block_sparse_bf16", "goap_conv_block_sparse_bf16_ref",
            "dense_of_blocks"]
@@ -53,6 +57,10 @@ MIN_STRIP = 32
 MAX_THREADS = 256
 DTYPES = (torch.float32, torch.bfloat16)
 BF16_MAX_BO = 32          # csrc/goap_conv.cu: BO up to 4 n8 fragments
+BF16_STRIPS = (256, 128, 64)       # X' columns a strip: 64-column rows
+BF16_MAX_WARPS = 16
+BF16_REGS = 128           # registers a thread of the bf16 kernel may take (512 threads)
+SM_REGS = 65_536
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +131,84 @@ def plan_goap_conv_launch(n_oc_tiles: int, max_tiles: int, bo: int, bk: int,
     resident = min(SM_SMEM // (smem(strip) + 1024), SM_THREADS // threads)
     blocks = max(1, min(-(-oi // strip), resident * n_sms))
     return ConvLaunch(strip, rb, blocks, threads, smem(strip))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvBf16Launch:
+    """One launch of the bf16 kernel (``goap_conv_bf16``): X' columns per
+    strip, blocks (each walks strips ``b, b + blocks, ...``), threads per
+    block and dynamic shared memory."""
+    strip: int
+    blocks: int
+    threads: int
+    smem_bytes: int
+
+
+def conv_bf16_smem(n_oc_tiles: int, max_tiles: int, bo: int, bk: int,
+                   n_k_tiles: int, strip: int) -> int:
+    """Shared memory of one block of the bf16 kernel (``csrc/goap_conv.cu``
+    ``bf_smem``): two strips of X' (each k-tile's rows padded to a multiple
+    of 16, unpadded 128-byte rows swizzled), the tiles (BO padded to 8
+    rows, BK to a multiple of 16 plus 8) and the output tile (rows padded
+    by 8 values) in bf16; then the tile indices."""
+    bkp, bop = -(-bk // 16) * 16, -(-bo // 8) * 8
+    return (2 * (2 * n_k_tiles * bkp * strip
+                 + n_oc_tiles * max_tiles * bop * (bkp + 8)
+                 + n_oc_tiles * bop * (strip + 8))
+            + 4 * n_oc_tiles * max_tiles)
+
+
+def conv_bf16_groups(bo: int) -> int:
+    """16-column groups a warp item of the bf16 kernel computes together
+    (``csrc/goap_conv.cu`` ``bf_groups``): 4 up to BO = 16, else 2."""
+    return 4 if bo <= 16 else 2
+
+
+def plan_goap_conv_bf16_launch(n_oc_tiles: int, max_tiles: int, bo: int,
+                               bk: int, k_pad: int, oi: int, *,
+                               n_sms: int = N_SMS,
+                               strip: Optional[int] = None) -> ConvBf16Launch:
+    """The strip, grid, threads and shared memory of one launch of the
+    bf16 form.
+
+    A block holds two strips of X' (one computed, the next in flight), all
+    the tiles and an output tile in shared memory; a strip is 64, 128 or
+    256 columns (rows of 64 swizzled), and the block's warps (up to 16, no
+    more than it has items) walk (oc-tile, 16 x ``conv_bf16_groups(bo)``
+    columns) items.  By default the widest strip whose block fits and that
+    still gives nine SMs in ten a strip, else the narrowest that fits: X'
+    leaves device memory once whatever the strip, so the strip trades the
+    block's fixed costs (its tiles, barriers) and its warps against SMs
+    left idle (``python -m repro_torch.kernels.sweep --kernels bf16``:
+    conv3's 128 strips of 128 columns beat 256 of 64).  The grid is as
+    many blocks as fit on the card at once, at most one per strip (on grid
+    x).  Raises past 227 KB or for BO above 32."""
+    if bo <= 0 or bo > BF16_MAX_BO:
+        raise ValueError(f"block_oc {bo} is not 1 to {BF16_MAX_BO}: the bf16 "
+                         "kernel holds at most 4 n8 fragments")
+    n_k = k_pad // bk
+    item = 16 * conv_bf16_groups(bo)
+
+    def smem(width):
+        return conv_bf16_smem(n_oc_tiles, max_tiles, bo, bk, n_k, width)
+
+    if strip is None:
+        widest = max(BF16_STRIPS[-1], min(BF16_STRIPS[0], -(-oi // 64) * 64))
+        fits = [w for w in BF16_STRIPS if w <= widest and smem(w) <= MAX_SMEM]
+        strip = next((w for w in fits if -(-oi // w) >= 0.9 * n_sms),
+                     fits[-1] if fits else BF16_STRIPS[-1])
+    if strip not in BF16_STRIPS:
+        raise ValueError(f"strip {strip} is not one of {BF16_STRIPS}")
+    if smem(strip) > MAX_SMEM:
+        raise ValueError(
+            f"a block needs {smem(strip)} bytes of shared memory (2 x {n_k} "
+            f"k-tiles x {strip} columns of X', {n_oc_tiles * max_tiles} tiles "
+            f"of {bo}x{bk} and the output tile); the H100 gives {MAX_SMEM}")
+    threads = 32 * max(1, min(BF16_MAX_WARPS, n_oc_tiles * strip // item))
+    resident = max(1, min(SM_SMEM // (smem(strip) + 1024), SM_THREADS // threads,
+                          SM_REGS // (BF16_REGS * threads)))
+    blocks = max(1, min(-(-oi // strip), resident * n_sms))
+    return ConvBf16Launch(strip, blocks, threads, smem(strip))
 
 
 def goap_conv_block_sparse_ref(blocks: torch.Tensor, block_cols: torch.Tensor,
@@ -272,12 +358,14 @@ def goap_conv_block_sparse_bf16(blocks: torch.Tensor, block_cols: torch.Tensor,
         raise TypeError(f"blocks must be bfloat16, got {blocks.dtype}")
     if x.device.type == "cpu":
         return goap_conv_block_sparse_bf16_ref(blocks, block_cols, x)
-    n_oc_tiles, max_tiles, bo, bk = blocks.shape
-    if bo > BF16_MAX_BO:
-        raise ValueError(f"block_oc {bo} > {BF16_MAX_BO}: the bf16 kernel "
-                         "holds at most 4 n8 fragments")
+    return _launch_bf16(blocks, block_cols, x, plan_goap_conv_bf16_launch(
+        *blocks.shape, x.shape[0], x.shape[1], n_sms=_n_sms(x.device)))
+
+
+def _launch_bf16(blocks, block_cols, x, plan: ConvBf16Launch) -> torch.Tensor:
     from repro_torch.kernels.build import check, kernel_function
 
+    n_oc_tiles, max_tiles, bo, bk = blocks.shape
     oi = x.shape[1]
     blocks = blocks.contiguous()
     cols = block_cols.to(torch.int32).contiguous()
@@ -287,9 +375,10 @@ def goap_conv_block_sparse_bf16(blocks: torch.Tensor, block_cols: torch.Tensor,
     if out.numel() == 0:
         return out
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = kernel_function("goap_conv_bf16", [vp] * 4 + [ci] * 6 + [vp])
+    fn = kernel_function("goap_conv_bf16", [vp] * 4 + [ci] * 10 + [vp])
     err = fn(blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-             n_oc_tiles, max_tiles, bo, bk, x.shape[0] // bk, oi,
+             n_oc_tiles, max_tiles, bo, bk, x.shape[0] // bk, oi, plan.strip,
+             plan.blocks, plan.threads, plan.smem_bytes,
              torch.cuda.current_stream(x.device).cuda_stream)
     check(err, "goap_conv_bf16")
     count_launch(goap_conv_block_sparse_bf16)

@@ -13,10 +13,12 @@ paper model's Σ-Δ frames at batch 64 and 1 over every cluster size,
 thread count and FC residency the planner can lay out.  Every plan's output is first held bit
 for bit to the in-order version (the plain version for the whole-network
 kernel).  Prints one JSON line per plan, the planner's own choice marked
-``"default": true``.  ``--kernels bf16`` times the three bf16 forms (one
-launch shape each) at the same shapes with bf16 weights, each held bit for
-bit to its plain version, beside ``torch.matmul`` in bf16 for the two
-products.  Needs a CUDA device.
+``"default": true``.  ``--kernels bf16`` times the three bf16 forms at the
+same shapes with bf16 weights: the conv over its strip widths, the FC
+over its row tiles, output tiles and warps a block, each plan held bit
+for bit to the plain version and printed with its ratio to
+``torch.matmul`` in bf16 on the same operands (``library_ms``); the LIF
+at its one launch shape.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -151,8 +153,13 @@ def sweep_fused(rng, device, batches=(64, 1)):
                         stack, frames, plan=launch))}))
 
 
+FC_BF16_PLANS = [(rows, out_tile, split) for rows in (16, 32)
+                 for out_tile in (16, 32, 64) for split in (8, 4, 2, 1)]
+
+
 def sweep_bf16(rng, device):
     bf16 = torch.bfloat16
+    n_sms = goap_conv._n_sms(device)
     for layer, (kw, ic, oc, w) in enumerate(CONVS):
         k = ((rng.random((kw, ic, oc)) < 0.5)
              * rng.normal(size=(kw, ic, oc))).astype(np.float32)
@@ -161,20 +168,43 @@ def sweep_bf16(rng, device):
         cols = torch.as_tensor(bs.block_cols, device=device)
         x = torch.as_tensor(rng.random((bs.padded_k, ROWS * w)) < 0.5,
                             device=device).to(bf16)
-        _bf16_row(lambda: goap_conv.goap_conv_block_sparse_bf16(
-                      blocks, cols, x, block_oc=8, block_k=32),
-                  goap_conv.goap_conv_block_sparse_bf16_ref(blocks, cols, x),
-                  dict(kernel="goap_conv_block_sparse_bf16",
-                       layer=f"conv{layer + 1}", shape=[*blocks.shape, *x.shape]),
-                  goap_conv.dense_of_blocks(blocks, cols, x.shape[0]), x)
+        shape = (*blocks.shape, *x.shape)
+        want = goap_conv.goap_conv_block_sparse_bf16_ref(blocks, cols, x)
+        dense = goap_conv.dense_of_blocks(blocks, cols, x.shape[0])
+        library_ms = graph_ms(lambda: torch.matmul(dense, x))
+        default = goap_conv.plan_goap_conv_bf16_launch(*shape, n_sms=n_sms)
+        base = dict(kernel="goap_conv_block_sparse_bf16", layer=f"conv{layer + 1}",
+                    shape=list(shape))
+        for strip in goap_conv.BF16_STRIPS:
+            try:
+                plan = goap_conv.plan_goap_conv_bf16_launch(*shape, n_sms=n_sms,
+                                                            strip=strip)
+            except ValueError:
+                continue
+            _bf16_row(lambda: goap_conv._launch_bf16(blocks, cols, x, plan), want,
+                      {**base, "plan": dataclasses.asdict(plan),
+                       "default": plan == default}, library_ms)
     for layer, (din, dout) in enumerate(FCS):
         s = torch.as_tensor(rng.random((ROWS, din)) < 0.5, device=device).to(bf16)
         w = torch.as_tensor((rng.random((din, dout)) < 0.5)
                             * rng.normal(size=(din, dout)), device=device).to(bf16)
-        _bf16_row(lambda: wm_fc.wm_fc_matmul_bf16(s, w),
-                  wm_fc.wm_fc_matmul_bf16_ref(s, w),
-                  dict(kernel="wm_fc_matmul_bf16", layer=f"fc{layer + 1}",
-                       shape=[ROWS, din, dout]), s, w)
+        want = wm_fc.wm_fc_matmul_bf16_ref(s, w)
+        library_ms = graph_ms(lambda: torch.matmul(s, w))
+        default = wm_fc.plan_wm_fc_bf16_launch(ROWS, din, dout)
+        base = dict(kernel="wm_fc_matmul_bf16", layer=f"fc{layer + 1}",
+                    shape=[ROWS, din, dout])
+        plans = {default}
+        for rows, out_tile, split in FC_BF16_PLANS:
+            try:
+                plans.add(wm_fc.plan_wm_fc_bf16_launch(
+                    ROWS, din, dout, rows=rows, out_tile=out_tile,
+                    split=min(split, default.split)))
+            except ValueError:
+                continue
+        for plan in sorted(plans, key=dataclasses.astuple):
+            _bf16_row(lambda: wm_fc._launch_bf16(s, w, plan), want,
+                      {**base, "plan": dataclasses.asdict(plan),
+                       "default": plan == default}, library_ms)
     for layer, (_, dout) in enumerate(FCS):
         n = 64 * dout
         args = [torch.as_tensor(a, device=device).to(bf16) for a in (
@@ -186,19 +216,20 @@ def sweep_bf16(rng, device):
                        shape=[8, n]))
 
 
-def _bf16_row(run, want, base, *library):
-    """Hold ``run()`` bit for bit to ``want``, then print its device ms
-    (and that of ``torch.matmul`` on ``library``'s two operands)."""
+def _bf16_row(run, want, row, library_ms=None):
+    """Hold ``run()`` bit for bit to ``want``, then print its device ms,
+    beside ``library_ms`` and the ratio of the two where there is one."""
     got = run()
     outs = got if isinstance(got, tuple) else (got,)
     wants = want if isinstance(want, tuple) else (want,)
-    if not all(torch.equal(g, w) for g, w in zip(outs, wants)):
-        raise AssertionError(f"{base} differs from the plain version")
-    if library:
-        a, b = library
-        print(json.dumps({**base, "library": "torch.matmul bf16",
-                          "ms": graph_ms(lambda: torch.matmul(a, b))}))
-    print(json.dumps({**base, "ms": graph_ms(run)}))
+    if not all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+               for g, w in zip(outs, wants)):
+        raise AssertionError(f"{row} differs from the plain version")
+    ms = graph_ms(run)
+    if library_ms is not None:
+        row = {**row, "library": "torch.matmul bf16", "library_ms": library_ms,
+               "ratio": ms / library_ms}
+    print(json.dumps({**row, "ms": ms}))
 
 
 SWEEPS = {"conv": sweep_conv, "fc": sweep_fc, "fused": sweep_fused,

@@ -21,8 +21,12 @@ With bf16 weights :func:`wm_fc_matmul` runs the reference's bf16 form,
 the weights' dtype, each 128-input tile's dot is accumulated in f32 and
 rounded to bf16, and the tiles are summed in bf16, one rounding each
 (:func:`wm_fc_matmul_bf16_ref`, the plain version).  The kernel
-(``wm_fc_bf16`` in ``csrc/wm_fc.cu``) runs the tiles' dots on the tensor
-cores (``mma.sync`` m16n8k16, f32 accumulators).
+(``wm_fc_bf16`` in ``csrc/wm_fc.cu``) gives a block a tile of batch rows x
+outputs and one warp to each reference tile of IN: each warp stages its
+tile with 16-byte ``cp.async`` and runs its dot on the tensor cores
+(``mma.sync`` m16n8k16, f32 accumulators), and the block adds the rounded
+dots in ascending tile order.  :func:`plan_wm_fc_bf16_launch` picks the
+tiles, the warps and the shared memory.
 """
 from __future__ import annotations
 
@@ -35,8 +39,9 @@ import torch
 from repro_torch.core.goap import matmul_rounded
 from repro_torch.kernels.launches import count_launch
 
-__all__ = ["FCLaunch", "plan_wm_fc_launch", "wm_fc_matmul", "wm_fc_matmul_ref",
-           "wm_fc_matmul_inorder", "wm_fc_matmul_bf16", "wm_fc_matmul_bf16_ref"]
+__all__ = ["FCLaunch", "plan_wm_fc_launch", "FCBf16Launch", "plan_wm_fc_bf16_launch",
+           "wm_fc_matmul", "wm_fc_matmul_ref", "wm_fc_matmul_inorder",
+           "wm_fc_matmul_bf16", "wm_fc_matmul_bf16_ref"]
 
 MAX_SMEM = 232_448        # shared memory a block may use on the H100 (bytes)
 MAX_THREADS = 256
@@ -44,6 +49,7 @@ ROWS = 16                 # batch rows per block (at least one warp's worth)
 CHUNK = 128               # inputs per shared-memory chunk (as csrc/wm_fc.cu)
 MAX_GRID_Y = 65_535       # output tiles lie on grid y
 BF16_TILE = 128           # inputs per reference tile (wm_fc.py block_in)
+BF16_MAX_SPLIT = 8        # warps a block of the bf16 kernel (one tile each)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -92,6 +98,68 @@ def plan_wm_fc_launch(batch: int, din: int, dout: int, *,
         raise ValueError(f"{dout} outputs need {grid[1]} output tiles; the "
                          f"grid takes {MAX_GRID_Y}")
     return FCLaunch(rows, out_tile, threads, smem, grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class FCBf16Launch:
+    """One launch of the bf16 kernel (``wm_fc_bf16``): batch rows and
+    outputs per block, warps per block (each takes one 128-input reference
+    tile of a round), threads, dynamic shared memory, grid."""
+    rows: int
+    out_tile: int
+    split: int
+    threads: int
+    smem_bytes: int
+    grid: Tuple[int, int]
+
+
+def fc_bf16_smem(rows: int, out_tile: int, split: int) -> int:
+    """Shared memory of one block of the bf16 kernel (``csrc/wm_fc.cu``
+    ``bf_smem``): per warp its tile's spikes (rows x 136 bf16) and weights
+    (128 x (out_tile + 8) bf16), then the warps' dots (f32, rows
+    padded by 8) and the block's accumulators (f32)."""
+    return (split * 2 * (rows * (BF16_TILE + 8) + BF16_TILE * (out_tile + 8))
+            + 4 * (split * rows * (out_tile + 8) + rows * out_tile))
+
+
+def plan_wm_fc_bf16_launch(batch: int, din: int, dout: int, *,
+                           rows: Optional[int] = None,
+                           out_tile: Optional[int] = None,
+                           split: Optional[int] = None) -> FCBf16Launch:
+    """The tiles, warps and shared memory of one launch of the bf16 form.
+
+    A block owns ``rows`` (16 or 32) batch rows x ``out_tile`` (16, 32 or
+    64) outputs; its ``split`` warps (up to 8, no more than IN has 128-input
+    tiles) take one reference tile each, and IN beyond ``split`` tiles takes
+    further rounds.  By default 16 rows, and the output tile is 16 where
+    OUT fits in it, else 32, so FC1 (512 x 1024 x 128) runs 128 blocks of
+    8 warps and FC2 (OUT = 11) 32 blocks of one: in the sweep (``python -m
+    repro_torch.kernels.sweep --kernels bf16``) 256 blocks of 16 outputs
+    were slower on FC1, each re-reading its rows' spikes from L2 twice as
+    often.  The batch lies on grid x (uncapped), the output tiles on grid
+    y (at most 65,535).  Raises where the card would refuse the launch."""
+    n_tiles = -(-din // BF16_TILE)
+    if rows is None:
+        rows = 16
+    if out_tile is None:
+        out_tile = 16 if dout <= 16 else 32
+    if split is None:
+        split = max(1, min(BF16_MAX_SPLIT, n_tiles))
+    if rows not in (16, 32):
+        raise ValueError(f"rows {rows} must be 16 or 32")
+    if out_tile not in (16, 32, 64):
+        raise ValueError(f"out_tile {out_tile} must be 16, 32 or 64")
+    if not 1 <= split <= BF16_MAX_SPLIT:
+        raise ValueError(f"split {split} must be 1 to {BF16_MAX_SPLIT} warps")
+    smem = fc_bf16_smem(rows, out_tile, split)
+    if smem > MAX_SMEM:
+        raise ValueError(f"a block needs {smem} bytes of shared memory; the "
+                         f"H100 gives {MAX_SMEM}")
+    grid = (-(-batch // rows), -(-dout // out_tile))
+    if grid[1] > MAX_GRID_Y:
+        raise ValueError(f"{dout} outputs need {grid[1]} output tiles; the "
+                         f"grid takes {MAX_GRID_Y}")
+    return FCBf16Launch(rows, out_tile, split, 32 * split, smem, grid)
 
 
 def wm_fc_matmul_ref(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -184,6 +252,11 @@ def wm_fc_matmul_bf16(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tens
     spikes = spikes.to(torch.bfloat16)
     if spikes.device.type == "cpu":
         return wm_fc_matmul_bf16_ref(spikes, weights)
+    return _launch_bf16(spikes, weights, plan_wm_fc_bf16_launch(
+        spikes.shape[0], spikes.shape[1], weights.shape[1]))
+
+
+def _launch_bf16(spikes, weights, plan: FCBf16Launch) -> torch.Tensor:
     from repro_torch.kernels.build import check, kernel_function
 
     b, din = spikes.shape
@@ -194,9 +267,10 @@ def wm_fc_matmul_bf16(spikes: torch.Tensor, weights: torch.Tensor) -> torch.Tens
     if out.numel() == 0:
         return out
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = kernel_function("wm_fc_bf16", [vp] * 3 + [ci] * 3 + [vp])
+    fn = kernel_function("wm_fc_bf16", [vp] * 3 + [ci] * 8 + [vp])
     err = fn(spikes.data_ptr(), weights.data_ptr(), out.data_ptr(), b, din,
-             dout, torch.cuda.current_stream(spikes.device).cuda_stream)
+             dout, plan.rows, plan.out_tile, plan.split, plan.threads,
+             plan.smem_bytes, torch.cuda.current_stream(spikes.device).cuda_stream)
     check(err, "wm_fc_bf16")
     count_launch(wm_fc_matmul_bf16)
     return out

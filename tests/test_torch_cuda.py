@@ -1017,3 +1017,187 @@ def test_bf16_model_serves_through_the_bf16_kernels(cuda):
     want = cpu.bound.batch(sigma_delta_encode_batch(torch.as_tensor(iq),
                                                     SMALL.timesteps))
     np.testing.assert_array_equal(preds, want.argmax(-1).numpy())
+
+
+# The redesigned bf16 forms at their edges: every launch plan, ragged
+# shapes, IN not a multiple of 128, several rounds of tiles, BO 4-32 and
+# BK 16-48, OI not a multiple of the strip or of 8, no tile slots, a bad
+# k-tile index, and operands whose data pointer is off 16-byte alignment.
+
+def _bf16(a, device):
+    return torch.as_tensor(np.asarray(a, np.float32), device=device).to(torch.bfloat16)
+
+
+def _bf16_bits_equal(got, want):
+    """Bit-for-bit equality of bf16 tensors (NaN rows included)."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    n = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    assert n == 0, f"{n} of {got.numel()} elements differ"
+
+
+def _at_odd_offset(t):
+    """t's values in a contiguous tensor that starts one element into its
+    allocation: the data pointer is 2 bytes off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _column_slice(t):
+    """t's values as a slice one column into a wider tensor (not contiguous)."""
+    wide = torch.zeros((t.shape[0], t.shape[1] + 1), dtype=t.dtype, device=t.device)
+    wide[:, 1:] = t
+    return wide[:, 1:]
+
+
+def _fc_bf16_operands(b, din, dout, seed, device):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng.random((b, din)) < 0.5, device),
+            _bf16((rng.random((din, dout)) < 0.4) * rng.normal(size=(din, dout)), device))
+
+
+BF16_FC_EDGES = {
+    "fc1": (LAYERED_ROWS, 1024, 128),
+    "fc2": (LAYERED_ROWS, 128, 11),
+    "ragged": (70, 130, 40),             # B, IN and OUT off every tile
+    "out11_in1000": (33, 1000, 11),
+    "out37": (17, 300, 37),
+    "two_rounds": (5, 2100, 64),         # 17 reference tiles: 8 + 8 + 1
+    "no_inputs": (4, 0, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operands", ["contiguous", "odd_offset", "column_slice"])
+@pytest.mark.parametrize("name", sorted(BF16_FC_EDGES))
+def test_wm_fc_bf16_edges_equal_plain(cuda, name, operands):
+    from repro_torch.kernels import wm_fc_matmul_bf16, wm_fc_matmul_bf16_ref
+
+    s, w = _fc_bf16_operands(*BF16_FC_EDGES[name], 3, cuda)
+    if operands == "odd_offset":
+        s, w = _at_odd_offset(s), _at_odd_offset(w)
+    elif operands == "column_slice":
+        s, w = _column_slice(s), _column_slice(w)
+    reset_launch_counts()
+    got = wm_fc_matmul_bf16(s, w)
+    assert launch_counts()["wm_fc_matmul_bf16"] == 1
+    _bf16_bits_equal(got, wm_fc_matmul_bf16_ref(s, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 32])
+@pytest.mark.parametrize("out_tile", [16, 32, 64])
+@pytest.mark.parametrize("split", [1, 3, 8])
+def test_wm_fc_bf16_every_plan_equals_plain(cuda, rows, out_tile, split):
+    from repro_torch.kernels import wm_fc
+    from repro_torch.kernels.wm_fc import MAX_SMEM, fc_bf16_smem, plan_wm_fc_bf16_launch
+
+    for b, din, dout in (BF16_FC_EDGES["fc1"], BF16_FC_EDGES["fc2"], BF16_FC_EDGES["ragged"]):
+        if fc_bf16_smem(rows, out_tile, split) > MAX_SMEM:    # 32 x 64 x 8 warps
+            with pytest.raises(ValueError, match="shared memory"):
+                plan_wm_fc_bf16_launch(b, din, dout, rows=rows, out_tile=out_tile,
+                                       split=split)
+            continue
+        s, w = _fc_bf16_operands(b, din, dout, 4, cuda)
+        plan = plan_wm_fc_bf16_launch(b, din, dout, rows=rows, out_tile=out_tile,
+                                      split=split)
+        _bf16_bits_equal(wm_fc._launch_bf16(s, w, plan),
+                         wm_fc.wm_fc_matmul_bf16_ref(s, w))
+
+
+@pytest.mark.cuda
+def test_wm_fc_bf16_random_normal_operands_within_one_ulp(cuda):
+    from repro_torch.kernels import wm_fc_matmul_bf16, wm_fc_matmul_bf16_ref
+
+    # spikes against unmasked normal weights (chip_smoke's random gate)
+    rng = np.random.default_rng(5)
+    for b, din, dout in BF16_FC_EDGES.values():
+        s = _bf16(rng.random((b, din)) < 0.5, cuda)
+        w = _bf16(rng.normal(size=(din, dout)), cuda)
+        got, want = wm_fc_matmul_bf16(s, w).float(), wm_fc_matmul_bf16_ref(s, w).float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126))) - 7)
+        assert float(((got - want).abs() / ulp).max()) <= 1.0
+
+
+def _conv_bf16_operands(r, mt, bo, bk, n_k, oi, seed, device):
+    rng = np.random.default_rng(seed)
+    return (_bf16(rng.normal(size=(r, mt, bo, bk)), device),
+            torch.as_tensor(rng.integers(0, n_k, (r, mt)), dtype=torch.int32, device=device),
+            _bf16(rng.random((n_k * bk, oi)) < 0.5, device))
+
+
+def _goap_bf16(blocks, cols, x):
+    from repro_torch.kernels import goap_conv_block_sparse_bf16
+
+    return goap_conv_block_sparse_bf16(blocks, cols, x, block_oc=blocks.shape[2],
+                                       block_k=blocks.shape[3])
+
+
+def _conv_bf16_plans(blocks, x):
+    """Every launch plan the planner lays out for these operands: each
+    strip that fits."""
+    from repro_torch.kernels.goap_conv import BF16_STRIPS, plan_goap_conv_bf16_launch
+
+    plans = []
+    for strip in BF16_STRIPS:
+        try:
+            plans.append(plan_goap_conv_bf16_launch(*blocks.shape, *x.shape, strip=strip))
+        except ValueError:               # past 227 KB
+            continue
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw,ic,oc,w", PAPER_CONVS, ids=["conv1", "conv2", "conv3"])
+def test_goap_conv_bf16_every_plan_at_paper_shapes(cuda, kw, ic, oc, w):
+    from repro_torch.kernels import goap_conv
+
+    blocks, cols, x = _conv_operands(kw, ic, oc, LAYERED_ROWS * w, 0, cuda)
+    blocks, x = blocks.to(torch.bfloat16), x.to(torch.bfloat16)
+    want = goap_conv.goap_conv_block_sparse_bf16_ref(blocks, cols, x)
+    reset_launch_counts()
+    _bf16_bits_equal(_goap_bf16(blocks, cols, x), want)
+    assert launch_counts()["goap_conv_block_sparse_bf16"] == 1
+    plans = _conv_bf16_plans(blocks, x)
+    assert len(plans) >= 2
+    for plan in plans:
+        _bf16_bits_equal(goap_conv._launch_bf16(blocks, cols, x, plan), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bo", [4, 8, 16, 24, 32])
+@pytest.mark.parametrize("bk", [16, 32, 48])
+def test_goap_conv_bf16_tiles_equal_plain(cuda, bo, bk):
+    from repro_torch.kernels import goap_conv
+
+    # OI 1000: not a multiple of any strip; then every plan the tiles take
+    blocks, cols, x = _conv_bf16_operands(3, 4, bo, bk, 5, 1000, bo + bk, cuda)
+    want = goap_conv.goap_conv_block_sparse_bf16_ref(blocks, cols, x)
+    _bf16_bits_equal(_goap_bf16(blocks, cols, x), want)
+    for plan in _conv_bf16_plans(blocks, x):
+        _bf16_bits_equal(goap_conv._launch_bf16(blocks, cols, x, plan), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["oi129", "oi33", "oi1", "no_slots", "bad_index",
+                                  "negative_index", "odd_offset", "column_slice"])
+def test_goap_conv_bf16_edges_equal_plain(cuda, case):
+    from repro_torch.kernels import goap_conv_block_sparse_bf16_ref
+
+    oi = {"oi129": 129, "oi33": 33, "oi1": 1}.get(case, 520)
+    blocks, cols, x = _conv_bf16_operands(3, 0 if case == "no_slots" else 4, 8, 32, 5,
+                                          oi, 11, cuda)
+    if case in ("bad_index", "negative_index"):
+        cols[1, 2] = 5 if case == "bad_index" else -1
+    elif case == "odd_offset":
+        blocks, cols, x = _at_odd_offset(blocks), _at_odd_offset(cols), _at_odd_offset(x)
+    elif case == "column_slice":
+        x = _column_slice(x)
+    got = _goap_bf16(blocks, cols, x)
+    want = goap_conv_block_sparse_bf16_ref(blocks, cols, x)
+    _bf16_bits_equal(got, want)
+    if case == "no_slots":
+        assert not bool(got.any())
+    if case in ("bad_index", "negative_index"):
+        assert bool(got[8:16].isnan().all()) and not bool(got[:8].isnan().any())

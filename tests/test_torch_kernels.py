@@ -43,7 +43,10 @@ from repro_torch.kernels import (
     wm_fc_matmul_inorder,
     wm_fc_op,
 )
-from repro_torch.kernels.goap_conv import MAX_SMEM, ConvLaunch, plan_goap_conv_launch
+from repro_torch.kernels.goap_conv import (BF16_STRIPS, MAX_SMEM, ConvBf16Launch,
+                                           ConvLaunch, conv_bf16_groups, conv_bf16_smem,
+                                           plan_goap_conv_bf16_launch,
+                                           plan_goap_conv_launch)
 from repro_torch.kernels.stream_fused import (
     CLUSTERS,
     FusedConv,
@@ -55,7 +58,8 @@ from repro_torch.kernels.stream_fused import (
     split_outputs,
 )
 from repro_torch.serve.batcher import make_buckets
-from repro_torch.kernels.wm_fc import CHUNK, FCLaunch, plan_wm_fc_launch
+from repro_torch.kernels.wm_fc import (CHUNK, FCBf16Launch, FCLaunch, fc_bf16_smem,
+                                       plan_wm_fc_bf16_launch, plan_wm_fc_launch)
 
 RNG = np.random.default_rng(0)
 
@@ -258,6 +262,108 @@ def test_wm_fc_plan_raises_where_the_card_would_refuse():
         plan_wm_fc_launch(512, 1024, 128, out_tile=24)
     with pytest.raises(ValueError, match="grid"):
         plan_wm_fc_launch(4, 32, 32 * 65_536, rows=16)
+
+
+# The bf16 forms' launch planners.  The paper model's shapes are those of
+# the sweep (repro_torch.kernels.sweep: CONVS, FCS, ROWS = 512) and of the
+# served bf16 path at batch 64.
+BF16_CONV_PLANS = {
+    "conv1": ((2, 1, 8, 32, 32, 65536), ConvBf16Launch(256, 256, 256, 42504)),
+    "conv2": ((4, 6, 8, 32, 192, 32768), ConvBf16Launch(256, 128, 512, 228960)),
+    "conv3": ((8, 5, 8, 32, 160, 16384), ConvBf16Launch(128, 128, 512, 125088)),
+}
+
+
+def _check_conv_bf16_plan(plan, shape):
+    r, mt, bo, bk, k_pad, oi = shape
+    item = 16 * conv_bf16_groups(bo)
+    assert plan.strip in BF16_STRIPS and plan.strip % item == 0
+    assert plan.smem_bytes == conv_bf16_smem(r, mt, bo, bk, k_pad // bk, plan.strip)
+    assert plan.smem_bytes <= MAX_SMEM
+    # every column lies in one strip and every strip has a block
+    n_strips = -(-oi // plan.strip)
+    assert n_strips * plan.strip >= oi and 1 <= plan.blocks <= n_strips
+    # a warp per (oc-tile, item) of a strip, up to 16
+    assert plan.threads == 32 * min(16, r * plan.strip // item)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CONV_PLANS))
+def test_goap_conv_bf16_plan_at_paper_shapes(name):
+    shape, want = BF16_CONV_PLANS[name]
+    plan = plan_goap_conv_bf16_launch(*shape)
+    assert plan == want
+    _check_conv_bf16_plan(plan, shape)
+
+
+@pytest.mark.parametrize("bo", [4, 8, 16, 24, 32])
+@pytest.mark.parametrize("bk", [16, 32, 48])
+@pytest.mark.parametrize("oi", [1, 33, 129, 1000, 65536])
+def test_goap_conv_bf16_plan_covers_tiles_and_ragged_oi(bo, bk, oi):
+    shape = (3, 4, bo, bk, 5 * bk, oi)
+    plan = plan_goap_conv_bf16_launch(*shape)
+    _check_conv_bf16_plan(plan, shape)
+    # no wider than OI needs (one box of 64 columns at least)
+    assert plan.strip == 64 or plan.strip // 2 < oi
+
+
+def test_goap_conv_bf16_plan_raises_where_the_card_would_refuse():
+    # 7 k-tiles x 256 columns twice and 28 tiles of 8 x 32: 264,304 bytes
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_goap_conv_bf16_launch(4, 7, 8, 32, 224, 32768, strip=256)
+    assert plan_goap_conv_bf16_launch(4, 7, 8, 32, 224, 32768).strip == 128
+    with pytest.raises(ValueError, match="block_oc"):
+        plan_goap_conv_bf16_launch(1, 1, 40, 32, 32, 64)
+    with pytest.raises(ValueError, match="strip"):
+        plan_goap_conv_bf16_launch(2, 2, 8, 32, 64, 4096, strip=96)
+    with pytest.raises(ValueError, match="strip"):              # narrower than a box
+        plan_goap_conv_bf16_launch(2, 2, 8, 32, 64, 4096, strip=32)
+    # 28 k-tiles of 32 rows x 64 columns twice are just under the limit, 29 over
+    plan = plan_goap_conv_bf16_launch(1, 1, 8, 32, 28 * 32, 100)
+    assert plan.strip == 64 and plan.smem_bytes == 231_172 <= MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        plan_goap_conv_bf16_launch(1, 1, 8, 32, 29 * 32, 100)
+
+
+BF16_FC_PLANS = {
+    "paper_fc1": ((512, 1024, 128), FCBf16Launch(16, 32, 8, 256, 139264, (32, 4))),
+    "paper_fc2": ((512, 128, 11), FCBf16Launch(16, 16, 1, 32, 13056, (32, 1))),
+    "small_fc1": ((32, 64, 16), FCBf16Launch(16, 16, 1, 32, 13056, (2, 1))),
+    "ragged": ((70, 130, 40), FCBf16Launch(16, 32, 2, 64, 36352, (5, 2))),
+    "out11_in1000": ((33, 1000, 11), FCBf16Launch(16, 16, 8, 256, 97280, (3, 1))),
+    "out37": ((17, 300, 37), FCBf16Launch(16, 32, 3, 96, 53504, (2, 2))),
+    "two_rounds": ((5, 2100, 64), FCBf16Launch(16, 32, 8, 256, 139264, (1, 2))),
+    "no_inputs": ((4, 0, 16), FCBf16Launch(16, 16, 1, 32, 13056, (1, 1))),
+    "big_batch": ((70_000, 1024, 128), FCBf16Launch(16, 32, 8, 256, 139264, (4375, 4))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_FC_PLANS))
+def test_wm_fc_bf16_plan(name):
+    (b, din, dout), want = BF16_FC_PLANS[name]
+    plan = plan_wm_fc_bf16_launch(b, din, dout)
+    assert plan == want
+    # a warp per 128-input reference tile, up to 8 a block (further rounds)
+    assert plan.split == max(1, min(8, -(-din // 128))) and plan.threads == 32 * plan.split
+    assert plan.smem_bytes == fc_bf16_smem(plan.rows, plan.out_tile, plan.split)
+    assert plan.smem_bytes <= MAX_SMEM
+    assert plan.grid[0] * plan.rows >= b > (plan.grid[0] - 1) * plan.rows
+    assert plan.grid[1] * plan.out_tile >= dout > (plan.grid[1] - 1) * plan.out_tile
+
+
+def test_wm_fc_bf16_plan_raises_where_the_card_would_refuse():
+    with pytest.raises(ValueError, match="shared memory"):   # 299,008 bytes
+        plan_wm_fc_bf16_launch(512, 1024, 128, rows=32, out_tile=64, split=8)
+    assert fc_bf16_smem(32, 64, 8) == 299_008
+    with pytest.raises(ValueError, match="rows"):
+        plan_wm_fc_bf16_launch(512, 1024, 128, rows=8)
+    with pytest.raises(ValueError, match="out_tile"):
+        plan_wm_fc_bf16_launch(512, 1024, 128, out_tile=24)
+    with pytest.raises(ValueError, match="split"):
+        plan_wm_fc_bf16_launch(512, 1024, 128, split=9)
+    with pytest.raises(ValueError, match="grid"):
+        plan_wm_fc_bf16_launch(4, 32, 32 * 65_536)
+    # the largest block that fits: 32 rows x 32 outputs x 8 warps
+    assert plan_wm_fc_bf16_launch(512, 1024, 128, rows=32, split=8).smem_bytes == 196_608
 
 
 @pytest.mark.parametrize("tt,n", [(1, 16), (4, 128), (8, 200), (3, 1030), (16, 7)])
