@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and hold it to itself.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA device, ``nvcc`` and the repository's ``src/`` beside this
 file; exits non-zero without them.  In order, it
@@ -65,7 +65,14 @@ file; exits non-zero without them.  In order, it
    model on their upcast, under another plan digest; and an engine for
    each of those backends and for the default race (``auto``, the kernel
    backends timed without error), each serving one batch by graph replay
-   with its plan's predictions.  Prints ``bf16_phase``;
+   with its plan's predictions.  Prints ``bf16_phase``.  Then
+   (``operands_phase``) one eager layer-by-layer batch of the ``cuda``
+   plan on the bf16 and the f32 model, in a process of its own: its
+   device kernels by ``torch.profiler``, and the device ms of one replay
+   of the same batch captured in a CUDA graph (median of 20); with
+   ``--parent DIR`` (an unpacked earlier tree of the repository, e.g.
+   ``git archive HEAD~``) the same for that tree's package, in turns
+   (parent, this, this, parent), and the kernels this tree saves;
 8. drives the paper's measurement plane at the same width, each path
    with the launch counts set to 0 just before it and read just after:
    - ``stream``: the Algorithm-2 interpreter (plain torch, no kernel) on
@@ -228,6 +235,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -292,7 +300,8 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
+    """Bytes of the tensors given (None, as a LIF's absent v0, is none)."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 class Check:
@@ -397,6 +406,7 @@ def check_kernels(plan, iq, frames_b, timers):
 
     # -- the per-layer kernels, on the plan's layer-by-layer path ----------
     checks, calls = check_per_layer(plan, frames_b)
+    floor_ms = launch_floor(frames_b.device)
     for name, kernel in PER_LAYER.items():
         plain = _plain(name)
         records = calls[name]
@@ -409,16 +419,36 @@ def check_kernels(plan, iq, frames_b, timers):
         def launch(c):
             return lambda: _kernel(name)(*c["args"], **c["kwargs"])
 
+        per_ms = [timers.graph(launch(c)) for c in records]
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{kernel}.cu",
             replaces=REPLACES[name], max_abs_err=checks[name].max_abs_err,
             inorder_max_abs_err=checks[name].inorder_max_abs_err,
-            ms=total(timers.graph, launch), call_ms=total(timers.call, launch),
-            plain_ms=total(timers.call, lambda c: lambda: plain(*c["args"])),
+            ms=sum(per_ms), per_launch_ms=per_ms, launch_floor_ms=floor_ms,
+            call_ms=total(timers.call, launch),
+            plain_ms=total(timers.call, lambda c: lambda: plain(
+                *c["args"], **plain_kwargs(name, c["kwargs"]))),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=(None if records[0]["library"] is None else
-                        total(timers.graph, lambda c: c["library"]))))
+                        total(timers.graph, lambda c: c["library"])),
+            note=LIF_BOUND_NOTE if name == "lif_update_fused" else None))
     return rows
+
+
+def launch_floor(device):
+    """Device ms of one replayed launch of an empty kernel of ours (one
+    block of 32 threads): the fixed cost under every launch's ``ms``
+    (None off the card)."""
+    from repro_torch.kernels.timing import launch_floor_ms
+
+    return launch_floor_ms(device) if device.type == "cuda" else None
+
+
+# what the LIF forms' bound counts
+LIF_BOUND_NOTE = ("ms sums a batch's launches (per_launch_ms); bound: the "
+                  "currents in, the spikes and final membrane out, the C-long "
+                  "per-channel alpha, theta and v_th (and v0 where one is "
+                  "given; none on the layered path)")
 
 
 def fused_plan(stack, frames):
@@ -465,6 +495,13 @@ def _inorder(name):
     return getattr(kernels, name + "_inorder")
 
 
+def plain_kwargs(name, kwargs):
+    """The keywords a kernel call passes on to its plain version: the LIF's
+    channel layout (``inner``); the conv's block sizes are its operands'
+    shapes there."""
+    return kwargs if name.startswith("lif_update_fused") else {}
+
+
 def check_per_layer(plan, frames_b):
     """Run the plan's layer-by-layer path once with every per-layer kernel
     call held against its plain version on the operands the path gave it.
@@ -483,7 +520,7 @@ def check_per_layer(plan, frames_b):
     def checked(name, kernel):
         def call(*args, **kwargs):
             got = kernel(*args, **kwargs)
-            want = _plain(name)(*args)
+            want = _plain(name)(*args, **plain_kwargs(name, kwargs))
             torch.cuda.synchronize()
             outs = got if isinstance(got, tuple) else (got,)
             wants = want if isinstance(want, tuple) else (want,)
@@ -528,7 +565,9 @@ def per_layer_work(name, args):
         s, w = args
         adds = (s != 0).sum(0).double() @ (w != 0).sum(1).double()
         return float(adds), lambda: torch.matmul(s, w)
-    # LIF: multiply, add, multiply, subtract per neuron and timestep
+    # LIF: multiply, add, compare, subtract per neuron and timestep; its
+    # bytes (nbytes of the call) are the currents, the C-long parameters,
+    # v0 where one is given, the spikes and the final membrane
     return 4.0 * args[0].numel(), None
 
 
@@ -586,8 +625,10 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
                                            "layered": per_layer}
 
 
-def run(device, timers: Timers, seed: int = SEED):
-    """Phases 3-23 on ``device``; returns the kernels JSON object."""
+def run(device, timers: Timers, seed: int = SEED,
+        parent: typing.Optional[pathlib.Path] = None):
+    """Phases 3-23 on ``device`` (``parent``: an earlier tree the operands
+    phase also probes); returns the kernels JSON object."""
     import numpy as np
     import torch
 
@@ -674,7 +715,8 @@ def run(device, timers: Timers, seed: int = SEED):
         row["launches"] = launches[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "inorder_max_abs_err", "ms", "call_ms", "plain_ms",
+            "max_abs_err", "inorder_max_abs_err", "ms", "per_launch_ms",
+            "launch_floor_ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "plan", "ms_batch1",
             "plan_batch1", "note")
     result = {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
@@ -685,6 +727,9 @@ def run(device, timers: Timers, seed: int = SEED):
         row["launches"] = bf16_served[row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
     result["kernels"] += [{k: row.get(k) for k in keys} for row in bf16_rows]
+    if device.type == "cuda":     # each probe is a process of its own on the card
+        print("phase: operands")
+        run_operands_phase(parent)
     print("phase: stream")
     stream_plan = run_stream_phase(program, params, masks, plan, frames_b,
                                    device, timers)
@@ -3004,11 +3049,13 @@ BF16_FORMS = {
     "wm_fc_matmul_bf16": ("wm_fc", "src/repro/kernels/wm_fc.py:40"),
     "lif_update_fused_bf16": ("lif_update", "src/repro/kernels/lif_update.py:46"),
 }
-# the one bf16 form no path launches: the reference's conv casts to f32
+# the one bf16 form no path launches (the reference's conv casts to f32),
+# and what the LIF's bound counts
 BF16_NOTES = {"goap_conv_block_sparse_bf16": (
     "kernel contract only: no path reaches this form (ops.goap_conv_op "
     "casts to f32, as the reference's does); held and timed on the served "
-    "convs' operands cast to bf16")}
+    "convs' operands cast to bf16"),
+    "lif_update_fused_bf16": LIF_BOUND_NOTE}
 BF16_BACKENDS = ("dense", "goap", "stream", "cuda", "cuda_fused")
 # the reference's kernel-test shapes, on random normal operands, and the
 # edges of the bf16 kernels' tiling: ragged B, IN not a multiple of 128,
@@ -3018,7 +3065,13 @@ BF16_FC_SHAPES = ((8, 256, 64), (5, 100, 37), (512, 1024, 128), (512, 128, 11),
                   (70, 130, 40), (33, 1000, 11), (17, 300, 37), (5, 2100, 64))
 BF16_GOAP_TILES = ((8, 16, 64), (8, 32, 64),            # (block_oc, block_k, OI)
                    (16, 48, 1000), (24, 32, 129), (32, 16, 520), (4, 48, 33))
-BF16_LIF_SHAPES = ((1, 16), (4, 128), (8, 200), (3, 1030), (16, 7))
+# (T, N, C, inner, with v0): the reference's (N,) form, then per-channel
+# layouts without v0 (FC: inner 1; conv: inner W), odd N, T past the 16 a
+# thread loads at once
+BF16_LIF_SHAPES = ((1, 16, 16, 1, True), (4, 128, 128, 1, True), (8, 200, 200, 1, True),
+                   (3, 1030, 1030, 1, True), (16, 7, 7, 1, True), (8, 704, 11, 1, False),
+                   (17, 22, 11, 1, False), (8, 4 * 16 * 128, 16, 128, False),
+                   (5, 9 * 3 * 33, 3, 33, False), (17, 3 * 5 * 7, 5, 7, True))
 
 
 def bf16_ulps(got, want):
@@ -3081,7 +3134,7 @@ def served_bf16_calls(plan, frames_b):
             blocks, cols, x = args
             calls["goap_conv_block_sparse_bf16"].append(
                 ((blocks.to(torch.bfloat16), cols, x.to(torch.bfloat16)), kwargs))
-        elif args[0].dtype == torch.bfloat16 or args[1].dtype == torch.bfloat16:
+        elif (args[1] if name == "wm_fc_matmul" else args[0]).dtype == torch.bfloat16:
             calls[name + "_bf16"].append((args, kwargs))
     missing = [n for n, c in calls.items() if not c]
     if missing:
@@ -3109,21 +3162,26 @@ def bf16_work(name, args):
                 lambda: torch.matmul(sp.to(w.dtype), w))
     cur = args[0]
     # multiply, add, compare, subtract per neuron and timestep (no tensor
-    # cores: the f32 instruction rate bounds it, as the f32 form's)
-    return (nbytes(*args) + nbytes(cur, args[1]), 4.0 * cur.numel(), None)
+    # cores: the f32 instruction rate bounds it, as the f32 form's); bytes:
+    # the currents, the C-long parameters and v0 where one is given in, the
+    # spikes and the final membrane out
+    return (nbytes(*args) + nbytes(cur, cur[0]), 4.0 * cur.numel(), None)
 
 
 def check_bf16_kernels(calls, device, timers, seed):
     """Each bf16 form against its plain version on the card: bit-equal on
     the served path's operands (the count of differing elements printed),
     within 1 bf16 ulp on random normal operands at the reference's test
-    shapes; then timed on the served operands.  Returns the rows."""
+    shapes (the LIF bit-equal there too, its per-channel layouts
+    included); then timed on the served operands, beside the launch floor.
+    Returns the rows."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
 
     rng = np.random.default_rng(seed)
+    floor_ms = launch_floor(device)
 
     def bf(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device).to(torch.bfloat16)
@@ -3140,9 +3198,10 @@ def check_bf16_kernels(calls, device, timers, seed):
               bf(rng.random((5 * bk, oi)) < 0.5)),
              {"block_oc": bo, "block_k": bk}) for bo, bk, oi in BF16_GOAP_TILES],
         "lif_update_fused_bf16": [
-            ((bf(rng.normal(size=(t, n))), bf(rng.normal(size=n)),
-              bf(rng.uniform(0.5, 0.99, n)), bf(rng.uniform(0.5, 1.5, n)),
-              bf(rng.uniform(0.3, 1.2, n))), {}) for t, n in BF16_LIF_SHAPES],
+            ((bf(rng.normal(size=(t, n))), bf(rng.normal(size=n)) if v0 else None,
+              bf(rng.uniform(0.5, 0.99, c)), bf(rng.uniform(0.5, 1.5, c)),
+              bf(rng.uniform(0.3, 1.2, c))), {"inner": inner})
+            for t, n, c, inner, v0 in BF16_LIF_SHAPES],
     }
     rows = []
     for name, (stem, replaces) in BF16_FORMS.items():
@@ -3152,7 +3211,8 @@ def check_bf16_kernels(calls, device, timers, seed):
             kernels, name.removesuffix("_bf16") + "_ref")
         n_diff, n_elems, max_err = 0, 0, 0.0
         for args, kwargs in calls[name]:
-            got, want = kernel(*args, **kwargs), plain(*args)
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **plain_kwargs(name, kwargs))
             torch.cuda.synchronize()
             for g, w in zip(*((got, want) if isinstance(got, tuple)
                               else ((got,), (want,)))):
@@ -3169,7 +3229,8 @@ def check_bf16_kernels(calls, device, timers, seed):
                                  "on the served operands")
         worst, r_diff = 0.0, 0
         for args, kwargs in random_calls[name]:
-            got, want = kernel(*args, **kwargs), plain(*args)
+            got = kernel(*args, **kwargs)
+            want = plain(*args, **plain_kwargs(name, kwargs))
             torch.cuda.synchronize()
             for g, w in zip(*((got, want) if isinstance(got, tuple)
                               else ((got,), (want,)))):
@@ -3177,9 +3238,10 @@ def check_bf16_kernels(calls, device, timers, seed):
                 worst = max(worst, float(bf16_ulps(g, w).max()))
         print(f"  {name} on random normal operands: {r_diff} elements differ, "
               f"at most {worst} bf16 ulp")
-        if worst > 1.0:
+        if worst > 1.0 or (r_diff and name == "lif_update_fused_bf16"):
             raise AssertionError(f"{name}: {worst} bf16 ulp from its plain "
-                                 "version on random operands")
+                                 "version on random operands (the LIF must "
+                                 "be bit-equal)")
         work = [bf16_work(name, args) for args, _ in calls[name]]
         b_ms, b_by = (bf16_bound_ms(sum(w[0] for w in work), sum(w[1] for w in work))
                       if name != "lif_update_fused_bf16" else
@@ -3196,27 +3258,36 @@ def check_bf16_kernels(calls, device, timers, seed):
             name=name, route="cuda", source=f"src/repro_torch/csrc/{stem}.cu",
             replaces=replaces, max_abs_err=max_err,
             random_max_ulp=worst, served_elements_differ=n_diff,
-            ms=sum(per_ms), call_ms=total(timers.call, launch),
-            plain_ms=total(timers.call, [lambda a=args: plain(*a)
-                                         for args, _ in calls[name]]),
+            ms=sum(per_ms), per_launch_ms=per_ms, launch_floor_ms=floor_ms,
+            call_ms=total(timers.call, launch),
+            plain_ms=total(timers.call, [
+                lambda a=args, k=kwargs: plain(*a, **plain_kwargs(name, k))
+                for args, kwargs in calls[name]]),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=None if lib_ms is None else sum(lib_ms),
-            plan=[bf16_plan(name, args, device) for args, _ in calls[name]],
+            plan=[bf16_plan(name, args, kwargs, device)
+                  for args, kwargs in calls[name]],
             note=BF16_NOTES.get(name))
         rows.append(row)
         print("bf16_kernel " + json.dumps({
             "name": name, "ms": row["ms"], "library_ms": row["library_ms"],
             "ratio": None if lib_ms is None else row["ms"] / row["library_ms"],
             "bound_ms": b_ms, "share": b_ms / row["ms"], "per_launch_ms": per_ms,
-            "per_launch_library_ms": lib_ms}))
+            "per_launch_library_ms": lib_ms, "launch_floor_ms": floor_ms}))
     return rows
 
 
-def bf16_plan(name, args, device):
-    """The launch plan the wrapper makes for one call (None for the LIF)."""
+def bf16_plan(name, args, kwargs, device):
+    """The launch plan the wrapper makes for one call."""
     import dataclasses
 
-    from repro_torch.kernels import goap_conv, wm_fc
+    from repro_torch.kernels import goap_conv, lif_update, wm_fc
+
+    if name == "lif_update_fused_bf16":
+        cur, v0, alpha = args[:3]
+        return dataclasses.asdict(lif_update.plan_lif_bf16_launch(
+            *cur.shape, alpha.shape[0], kwargs.get("inner", 1),
+            goap_conv._n_sms(device), align=lif_update._alignment(cur, v0)))
 
     if name == "wm_fc_matmul_bf16":
         sp, w = args
@@ -3424,8 +3495,131 @@ def bf16_fused_equals_upcast(program, params, masks, frames_b, device) -> None:
                              "the f32 model on their upcast")
 
 
+# ---------------------------------------------------------------------------
+# operands_phase: what one layer-by-layer batch launches on the card, for
+# this tree and (``--parent DIR``: an unpacked earlier tree) for another.
+# ---------------------------------------------------------------------------
+
+PROBE_REPLAYS = 20
+
+
+def device_kernels(fn) -> dict:
+    """The device operations of one call of ``fn`` (``torch.profiler``):
+    kernels and copies counted apart, the kernels by name."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [n for n in names if n.startswith(("Memcpy", "Memset"))]
+    kernels = collections.Counter(n[:80] for n in names if n not in copies)
+    return {"device_kernels": sum(kernels.values()), "copies": len(copies),
+            "by_name": dict(kernels.most_common())}
+
+
+def run_probe() -> dict:
+    """One eager layer-by-layer batch of the ``cuda`` plan (bf16 and f32
+    models, batch 64, seed-0 weights, density 0.5): its device kernels, and
+    the device ms of one replay of the same batch captured in a CUDA graph
+    (CUDA events around the replay alone, median of ``PROBE_REPLAYS``).
+    Uses only names every tree of the port since slice 12 has."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (SNNConfig, compile_plan, compile_snn, init_snn,
+                                 make_mask_pytree)
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.kernels.timing import graph_ms
+    from repro_torch.plan import PlanCache, set_default_cache
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    set_default_cache(PlanCache(disk_dir=""))
+    device = torch.device("cuda", 0)
+    cfg = SNNConfig()
+    iq = np.random.default_rng(SEED).normal(
+        size=(BATCH, cfg.conv_specs[0][1], cfg.input_width)).astype(np.float32)
+    frames = sigma_delta_encode_batch(torch.as_tensor(iq, device=device),
+                                      cfg.timesteps)
+    out = {}
+    with torch.no_grad():
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            params = init_snn(SEED, cfg, dtype=dtype)
+            masks = (bf16_masks(params) if dtype == torch.bfloat16
+                     else make_mask_pytree(params, DENSITY))
+            plan = compile_plan(compile_snn(cfg), params, masks=masks,
+                                assignment="cuda", device=device)
+            for _ in range(2):
+                plan.bound.batch(frames)
+            out[name] = {**device_kernels(lambda: plan.bound.batch(frames)),
+                         "replay_ms": graph_ms(lambda: plan.bound.batch(frames),
+                                               calls=1, replays=PROBE_REPLAYS)}
+    return out
+
+
+def probe_tree(tree: pathlib.Path) -> dict:
+    """:func:`run_probe` on ``tree``'s package, in a process of its own."""
+    env = {**os.environ, "PYTHONPATH": str(tree / "src")}
+    done = subprocess.run([sys.executable, str(pathlib.Path(__file__).resolve()),
+                           "--probe", str(tree)], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in done.stdout.splitlines() if ln.startswith("probe ")]
+    if done.returncode != 0 or not lines:
+        raise AssertionError(f"the probe of {tree} failed ({done.returncode}):\n"
+                             f"{done.stdout[-3000:]}\n{done.stderr[-3000:]}")
+    return json.loads(lines[-1][len("probe "):])
+
+
+def run_operands_phase(parent: typing.Optional[pathlib.Path]) -> dict:
+    """The device kernels of one eager layered batch and the captured bf16
+    batch's replay ms, for this tree and, given ``--parent``, for the
+    parent's, in turns (parent, this, this, parent).  Prints
+    ``operands_phase``; fails if the probe of this tree saw no kernel."""
+    trees = ([("parent", parent), ("this", ROOT), ("this", ROOT),
+              ("parent", parent)] if parent is not None else [("this", ROOT)])
+    runs = {"this": [], "parent": []}
+    for label, tree in trees:
+        runs[label].append(probe_tree(tree))
+    line = {}
+    for label, probes in runs.items():
+        if not probes:
+            continue
+        line[label] = {d: {"device_kernels": probes[0][d]["device_kernels"],
+                           "copies": probes[0][d]["copies"],
+                           "replay_ms": [p[d]["replay_ms"] for p in probes],
+                           "by_name": probes[0][d]["by_name"]}
+                       for d in ("bf16", "f32")}
+    for d in ("bf16", "f32"):
+        if not line["this"][d]["device_kernels"]:
+            raise AssertionError(f"the {d} layered batch ran no device kernel")
+        if "parent" in line:
+            line[f"{d}_fewer_kernels"] = (line["parent"][d]["device_kernels"]
+                                          - line["this"][d]["device_kernels"])
+    line["card"] = nvidia_smi()
+    print("operands_phase " + json.dumps(line))
+    return line
+
+
 def main() -> int:
     import torch
+
+    if len(sys.argv) == 3 and sys.argv[1] == "--probe":
+        if not torch.cuda.is_available():
+            return 2
+        sys.path.insert(0, str(pathlib.Path(sys.argv[2]) / "src"))
+        print("probe " + json.dumps(run_probe()))
+        return 0
+    parent = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--parent":
+        parent = pathlib.Path(sys.argv[2]).resolve()
+    elif len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3446,7 +3640,7 @@ def main() -> int:
     from repro_torch.kernels.timing import call_ms, graph_ms
 
     device = torch.device("cuda", 0)
-    result = run(device, Timers(call_ms, graph_ms, host_timer))
+    result = run(device, Timers(call_ms, graph_ms, host_timer), parent=parent)
     for row in result["kernels"]:
         print(f"  {row['name']}: {row['ms']:.4f} ms (one call "
               f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "

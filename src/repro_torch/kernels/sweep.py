@@ -1,7 +1,7 @@
 """Time launch plans of the kernels on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.sweep [--seed 0]
-        [--kernels conv fc fused]
+        [--kernels conv fc fused bf16 lif]
 
 At the shapes the layer-by-layer path gives the kernels on the paper model
 (batch 64, T = 8, masks at density 0.5, binary X' and spikes), it times
@@ -17,8 +17,11 @@ kernel).  Prints one JSON line per plan, the planner's own choice marked
 same shapes with bf16 weights: the conv over its strip widths, the FC
 over its row tiles, output tiles and warps a block, each plan held bit
 for bit to the plain version and printed with its ratio to
-``torch.matmul`` in bf16 on the same operands (``library_ms``); the LIF
-at its one launch shape.  Needs a CUDA device.
+``torch.matmul`` in bf16 on the same operands (``library_ms``); then the
+LIF (also alone: ``--kernels lif``) on the layer-by-layer path's layouts
+(the FCs' and the convs' per-channel parameters, no v0) over every plan
+of ``plan_lif_bf16_launch``, beside the f32 form and an empty kernel's
+launch (the floor).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.core.sparse_format import block_sparse_from_dense
 from repro_torch.kernels import goap_conv, lif_update, stream_fused, wm_fc
-from repro_torch.kernels.timing import graph_ms
+from repro_torch.kernels.timing import graph_ms, launch_floor_ms
 
 # (kw, ic, oc, W) of the paper's convs and (IN, OUT) of its FCs
 CONVS = [(11, 2, 16, 128), (11, 16, 32, 64), (5, 32, 64, 32)]
@@ -205,15 +208,62 @@ def sweep_bf16(rng, device):
             _bf16_row(lambda: wm_fc._launch_bf16(s, w, plan), want,
                       {**base, "plan": dataclasses.asdict(plan),
                        "default": plan == default}, library_ms)
-    for layer, (_, dout) in enumerate(FCS):
-        n = 64 * dout
-        args = [torch.as_tensor(a, device=device).to(bf16) for a in (
-            rng.normal(size=(8, n)), np.zeros(n), np.full(n, 0.9),
-            np.ones(n), np.ones(n))]
-        _bf16_row(lambda: lif_update.lif_update_fused_bf16(*args),
-                  lif_update.lif_update_fused_ref(*args),
-                  dict(kernel="lif_update_fused_bf16", layer=f"fc{layer + 1}",
-                       shape=[8, n]))
+    sweep_lif(rng, device)
+
+
+def lif_layouts():
+    """(layer, T, N, C, inner) of the LIF on the layer-by-layer path at batch
+    64: the FCs' (C = OUT, inner = 1; the bf16 model's served LIFs) and the
+    convs' (C = OC, inner = W; f32 on the served path)."""
+    fcs = [(f"fc{i + 1}", 8, 64 * dout, dout, 1) for i, (_, dout) in enumerate(FCS)]
+    convs = [(f"conv{i + 1}", 8, 64 * oc * w, oc, w)
+             for i, (_, _, oc, w) in enumerate(CONVS)]
+    return fcs + convs
+
+
+def sweep_lif(rng, device):
+    """The bf16 LIF over every plan :func:`plan_lif_bf16_launch` can lay out
+    on each layout (v0 None, per-channel parameters), each held bit for bit
+    to the plain version; the f32 form's one launch beside it; the launch
+    floor (an empty kernel) on its own line."""
+    n_sms = goap_conv._n_sms(device)
+    print(json.dumps({"kernel": "launch_floor", "threads": 32,
+                      "ms": launch_floor_ms(device)}))
+    for layer, t, n, c, inner in lif_layouts():
+        cur = rng.normal(size=(t, n))
+        params = (rng.uniform(0.5, 0.99, c), rng.uniform(0.5, 1.5, c),
+                  rng.uniform(0.3, 1.2, c))
+        base = dict(layer=layer, shape=[t, n], channels=c, inner=inner)
+
+        def operands(dtype):
+            return [torch.as_tensor(a, device=device).to(dtype)
+                    for a in (cur, *params)]
+
+        f32 = operands(torch.float32)
+        got = lif_update.lif_update_fused(f32[0], None, *f32[1:], inner=inner)
+        want = lif_update.lif_update_fused_ref(f32[0], None, *f32[1:], inner=inner)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"lif f32 {layer} differs from the plain version")
+        print(json.dumps({"kernel": "lif_update_fused", **base,
+                          "ms": graph_ms(lambda: lif_update.lif_update_fused(
+                              f32[0], None, *f32[1:], inner=inner))}))
+        bf = operands(torch.bfloat16)
+        want = lif_update.lif_update_fused_ref(bf[0], None, *bf[1:], inner=inner)
+        default = lif_update.plan_lif_bf16_launch(t, n, c, inner, n_sms)
+        plans = set()
+        for k in lif_update.K_CHOICES:
+            for threads in lif_update.THREAD_CHOICES:
+                try:
+                    plans.add(lif_update.plan_lif_bf16_launch(
+                        t, n, c, inner, n_sms, k=k, threads=threads))
+                except ValueError:
+                    continue
+        for plan in sorted(plans, key=dataclasses.astuple):
+            _bf16_row(lambda: lif_update._launch_bf16(bf[0], None, *bf[1:], inner,
+                                                      plan),
+                      want, {"kernel": "lif_update_fused_bf16", **base,
+                             "plan": dataclasses.asdict(plan),
+                             "default": plan == default})
 
 
 def _bf16_row(run, want, row, library_ms=None):
@@ -233,14 +283,14 @@ def _bf16_row(run, want, row, library_ms=None):
 
 
 SWEEPS = {"conv": sweep_conv, "fc": sweep_fc, "fused": sweep_fused,
-          "bf16": sweep_bf16}
+          "bf16": sweep_bf16, "lif": sweep_lif}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", nargs="+", choices=sorted(SWEEPS),
-                    default=list(SWEEPS))
+                    default=[k for k in SWEEPS if k != "lif"])   # bf16 runs lif
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep: no CUDA device", file=sys.stderr)

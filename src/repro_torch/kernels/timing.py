@@ -7,15 +7,19 @@ No host work lies between the events, so a kernel behind a Python wrapper
 and a library call behind PyTorch's C++ dispatch are compared device time
 with device time.  A wrapper can be captured only if it does not
 synchronise with the host.  :func:`call_ms` keeps the older figure, one
-call between two events, host work included.
+call between two events, host work included.  :func:`launch_floor_ms`
+times an empty kernel of ours the same way: the device's fixed cost of a
+replayed launch, which no standalone kernel's ``ms`` can go below.
 """
 from __future__ import annotations
 
+import ctypes
 import statistics
 
 import torch
 
-__all__ = ["GRAPH_CALLS", "graph_ms", "call_ms"]
+__all__ = ["GRAPH_CALLS", "graph_ms", "call_ms", "launch_floor",
+           "launch_floor_ms"]
 
 GRAPH_CALLS = 20
 
@@ -65,3 +69,18 @@ def call_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launch_floor(device=None) -> None:
+    """Launch the library's empty kernel (``launch_floor`` in
+    ``csrc/common.cu``: one block of 32 threads) on the current stream."""
+    from repro_torch.kernels.build import check, kernel_function
+
+    fn = kernel_function("launch_floor", [ctypes.c_void_p])
+    check(fn(torch.cuda.current_stream(device).cuda_stream), "launch_floor")
+
+
+def launch_floor_ms(device=None) -> float:
+    """Device milliseconds of one replayed launch of the empty kernel, by
+    :func:`graph_ms`."""
+    return graph_ms(lambda: launch_floor(device))

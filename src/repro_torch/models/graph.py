@@ -444,7 +444,8 @@ BLOCK_K = 32
 
 def _cuda_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
                artifacts=None, device=None) -> LayerCell:
-    from repro_torch.kernels.ops import block_sparse_to, goap_conv_op, lif_op
+    from repro_torch.kernels.ops import (block_sparse_to, goap_conv_op, lif_op,
+                                         lif_operands)
 
     def build_bs():
         if "coo" in layer_params:
@@ -457,30 +458,36 @@ def _cuda_conv(spec, layer_params, *, cfg, mask=None, quant_fn=None,
     lif = layer_params["lif"].to(device)
     cell = _conv_cell(bs.kw, bs.oc, lif, lambda ifm: goap_conv_op(ifm, bs),
                       torch.float32)
+    # the LIF's operands once, for the f32 membrane goap_conv_op gives
+    with torch.no_grad():
+        lif_ops = lif_operands(lif, torch.float32)
 
     def seq(xs):
         # conv currents depend only on this timestep's input: the whole
         # (T, B) sequence is one conv launch, then one LIF launch over T
         currents = goap_conv_op(pad_same(xs, bs.kw), bs)
-        return lif_op(currents, lif)[0]
+        return lif_op(currents, lif_ops)[0]
 
     return dataclasses.replace(cell, seq=seq)
 
 
 def _cuda_fc(spec, layer_params, *, cfg, mask=None, quant_fn=None,
              artifacts=None, device=None) -> LayerCell:
-    from repro_torch.kernels.ops import lif_op, wm_fc_op
+    from repro_torch.kernels.ops import lif_op, lif_operands, wm_fc_op
 
     w = _weight(layer_params, mask, quant_fn, artifacts, device)
     lif = layer_params["lif"].to(device)
     cell = _fc_cell(w, lif, current_fn=lambda s: wm_fc_op(s, w))
+    # the LIF's operands once, for the membrane in the weights' dtype
+    with torch.no_grad():
+        lif_ops = lif_operands(lif, w.dtype)
 
     def seq(xs):
         # FC currents are memoryless in T: one (T*B, IN) WM launch, then
         # one fused LIF launch over T
         x = _spikes_of(xs)
         currents = wm_fc_op(x.reshape(x.shape[0], x.shape[1], -1), w)
-        return lif_op(currents, lif)[0], currents
+        return lif_op(currents, lif_ops)[0], currents
 
     return dataclasses.replace(cell, seq=seq)
 

@@ -974,20 +974,79 @@ def test_goap_conv_bf16_kernel_equals_its_plain_version(cuda, bo, bk, oi):
     assert bool(bad[bo:2 * bo].isnan().all()) and not bool(bad[:bo].isnan().any())
 
 
+# (T, N, C, inner, with v0): the reference's (N,) form, the FC layout
+# (inner 1), the conv layout (inner W), odd N, T past the 16 a thread loads
+# at once
+LIF_LAYOUTS = [(1, 16, 16, 1, True), (8, 200, 200, 1, True), (3, 1030, 1030, 1, True),
+               (16, 7, 7, 1, True), (8, 704, 11, 1, False), (8, 8192, 128, 1, False),
+               (8, 4 * 16 * 128, 16, 128, False), (17, 3 * 5 * 7, 5, 7, True),
+               (17, 2 * 11, 11, 1, False), (5, 9 * 3 * 33, 3, 33, False),
+               (8, 99, 1, 1, True), (0, 12, 4, 3, True)]
+
+
+def _lif_args(rng, tt, n, c, with_v0, dtype, device):
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device).to(dtype)
+    return (put(rng.normal(size=(tt, n))), put(rng.normal(size=n)) if with_v0 else None,
+            put(rng.uniform(0.5, 0.99, c)), put(rng.uniform(0.5, 1.5, c)),
+            put(rng.uniform(0.3, 1.2, c)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tt,n", [(1, 16), (8, 200), (3, 1030), (16, 7)])
-def test_lif_bf16_kernel_equals_its_plain_version(cuda, tt, n):
+@pytest.mark.parametrize("tt,n,c,inner,with_v0", LIF_LAYOUTS)
+def test_lif_bf16_kernel_equals_its_plain_version(cuda, tt, n, c, inner, with_v0):
+    from repro_torch.kernels import lif_update_fused, lif_update_fused_ref
+    from repro_torch.kernels import lif_update as lif
+    from repro_torch.kernels.goap_conv import _n_sms
+
+    rng = np.random.default_rng(tt * n + c)
+    args = _lif_args(rng, tt, n, c, with_v0, torch.bfloat16, cuda)
+    want = lif_update_fused_ref(*args, inner=inner)
+    reset_launch_counts()
+    got = lif_update_fused(*args, inner=inner)
+    assert launch_counts()["lif_update_fused_bf16"] == (1 if n else 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    # every plan the planner can lay out
+    plans = set()
+    for k in lif.K_CHOICES:
+        for threads in lif.THREAD_CHOICES:
+            try:
+                plans.add(lif.plan_lif_bf16_launch(tt, n, c, inner, _n_sms(cuda),
+                                                   k=k, threads=threads))
+            except ValueError:
+                continue
+    assert plans
+    for plan in plans:
+        for g, w in zip(lif._launch_bf16(*args, inner, plan), want):
+            assert torch.equal(g.view(torch.int16), w.view(torch.int16)), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tt,n,c,inner,with_v0", LIF_LAYOUTS)
+def test_lif_f32_kernel_takes_per_channel_parameters(cuda, tt, n, c, inner, with_v0):
     from repro_torch.kernels import lif_update_fused, lif_update_fused_ref
 
-    rng = np.random.default_rng(tt * n)
-    args = [torch.as_tensor(a, device=cuda).to(torch.bfloat16) for a in (
-        rng.normal(size=(tt, n)), rng.normal(size=n), rng.uniform(0.5, 0.99, n),
-        rng.uniform(0.5, 1.5, n), rng.uniform(0.3, 1.2, n))]
+    rng = np.random.default_rng(tt * n + c + 1)
+    args = _lif_args(rng, tt, n, c, with_v0, torch.float32, cuda)
     reset_launch_counts()
-    got = lif_update_fused(*args)
-    assert launch_counts()["lif_update_fused_bf16"] == 1
-    for g, w in zip(got, lif_update_fused_ref(*args)):
-        assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    got = lif_update_fused(*args, inner=inner)
+    assert launch_counts()["lif_update_fused"] == (1 if n else 0)
+    for g, w in zip(got, lif_update_fused_ref(*args, inner=inner)):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_lif_kernels_refuse_a_layout_that_is_not_whole_channels(cuda):
+    from repro_torch.kernels import lif_update_fused
+
+    rng = np.random.default_rng(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _lif_args(rng, 4, 30, 4, False, dtype, cuda)
+        with pytest.raises(ValueError, match="channels"):
+            lif_update_fused(*args)
+        with pytest.raises(ValueError, match="channels"):
+            lif_update_fused(*_lif_args(rng, 4, 30, 5, False, dtype, cuda), inner=4)
 
 
 @pytest.mark.cuda

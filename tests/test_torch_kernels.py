@@ -43,6 +43,7 @@ from repro_torch.kernels import (
     wm_fc_matmul_inorder,
     wm_fc_op,
 )
+from repro_torch.kernels.lif_update import plan_lif_bf16_launch
 from repro_torch.kernels.goap_conv import (BF16_STRIPS, MAX_SMEM, ConvBf16Launch,
                                            ConvLaunch, conv_bf16_groups, conv_bf16_smem,
                                            plan_goap_conv_bf16_launch,
@@ -387,6 +388,216 @@ def test_lif_op_multidim_with_channel_params():
     sp, vf = lif_op(t(cur), init_lif_params((oc, 1), alpha=0.8, theta=0.7, v_th=0.4))
     np.testing.assert_array_equal(sp.numpy(), np.asarray(sp_r))
     np.testing.assert_allclose(vf.numpy(), np.asarray(vf_r), atol=1e-5, rtol=1e-5)
+
+
+# the bf16 LIF's launch at the layer-by-layer path's shapes (batch 64, T 8,
+# 132 SMs): (T, N, C, inner) -> (k, t_tile, threads, grid)
+BF16_LIF_PLANS = {
+    "fc1": ((8, 64 * 128, 128, 1), (1, 8, 64, 128)),
+    "fc2": ((8, 64 * 11, 11, 1), (1, 8, 64, 11)),
+    "conv1": ((8, 64 * 16 * 128, 16, 128), (2, 8, 128, 512)),
+    "conv3": ((8, 64 * 64 * 32, 64, 32), (2, 8, 128, 512)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_LIF_PLANS))
+def test_lif_bf16_plan_at_the_layered_shapes(name):
+    (tt, n, c, inner), (k, t_tile, threads, grid) = BF16_LIF_PLANS[name]
+    plan = plan_lif_bf16_launch(tt, n, c, inner, 132)
+    assert (plan.k, plan.t_tile, plan.threads, plan.grid) == (k, t_tile, threads, grid)
+
+
+@pytest.mark.parametrize("tt,t_tile", [(0, 1), (1, 1), (3, 4), (8, 8), (16, 16), (17, 16),
+                                       (40, 16)])
+@pytest.mark.parametrize("n", [1, 7, 704, 1030, 8192])
+def test_lif_bf16_plan_covers_every_neuron(tt, t_tile, n):
+    for k in (None, 1, 2, 4, 8):
+        for threads in (None, 32, 64, 128, 256):
+            try:
+                plan = plan_lif_bf16_launch(tt, n, n, 1, 132, k=k, threads=threads)
+            except ValueError:
+                assert k is not None and n % k
+                continue
+            assert plan.t_tile == t_tile and n % plan.k == 0
+            assert plan.grid * plan.threads * plan.k >= n > (plan.grid - 1) * plan.threads * plan.k
+
+
+def test_lif_bf16_plan_raises_where_the_kernel_has_no_instance():
+    with pytest.raises(ValueError, match="k 3"):
+        plan_lif_bf16_launch(8, 30, 30, 1, 132, k=3)
+    with pytest.raises(ValueError, match="does not divide"):
+        plan_lif_bf16_launch(8, 30, 30, 1, 132, k=4)
+    with pytest.raises(ValueError, match="alignment"):
+        plan_lif_bf16_launch(8, 32, 32, 1, 132, k=4, align=4)
+    assert plan_lif_bf16_launch(8, 64 * 16 * 128, 16, 128, 132, align=2).k == 1
+    with pytest.raises(ValueError, match="threads"):
+        plan_lif_bf16_launch(8, 32, 32, 1, 132, threads=96)
+
+
+# (C, inner, groups): FC layouts (inner 1) and conv layouts (inner W), N =
+# groups x C x inner odd, so not a multiple of the k a thread takes
+LIF_CHANNEL_LAYOUTS = {"fc": (7, 1, 3), "conv": (3, 11, 3)}
+
+
+def _expanded(p, inner, groups):
+    """A (C,) parameter as the reference's (N,) vector."""
+    return np.tile(np.repeat(p, inner), groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("layout", sorted(LIF_CHANNEL_LAYOUTS))
+@pytest.mark.parametrize("tt", [1, 3, 8, 17])
+def test_lif_per_channel_and_v0_none_equal_the_expanded_call(tt, layout, dtype):
+    c, inner, groups = LIF_CHANNEL_LAYOUTS[layout]
+    n = c * inner * groups
+    assert n % 2 == 1
+    rng = np.random.default_rng(tt * n)
+    cur = rng.normal(size=(tt, n))
+    params = (rng.uniform(0.5, 0.99, c), rng.uniform(0.5, 1.5, c),
+              rng.uniform(0.3, 1.2, c))
+
+    def put(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
+
+    sp, vf = lif_update_fused(put(cur), None, *(put(a) for a in params), inner=inner)
+    sp_n, vf_n = lif_update_fused(put(cur), put(np.zeros(n)),
+                                  *(put(_expanded(a, inner, groups)) for a in params))
+    assert sp.dtype == dtype and vf.shape == (n,)
+    assert torch.equal(sp, sp_n) and torch.equal(vf, vf_n)
+
+
+@pytest.mark.parametrize("n,c,inner", [(30, 4, 1), (30, 5, 4), (12, 5, 1), (12, 0, 1),
+                                       (12, 12, 2)])
+def test_lif_layouts_that_are_not_whole_channels_raise(n, c, inner):
+    args = (torch.zeros(3, n), None, *(torch.ones(c) for _ in range(3)))
+    with pytest.raises(ValueError, match="channels|vector"):
+        lif_update_fused(*args, inner=inner)
+    with pytest.raises(ValueError, match="inner"):
+        lif_update_fused(torch.zeros(3, 12), None, *(torch.ones(4) for _ in range(3)),
+                         inner=0)
+    with pytest.raises(ValueError, match="vector"):
+        lif_update_fused(torch.zeros(3, 12), None, torch.ones(4), torch.ones(3),
+                         torch.ones(4))
+
+
+def test_lif_op_equals_reference_on_bf16_fc_layout():
+    tt, b, dout = 6, 5, 11
+    rng = np.random.default_rng(11)
+    cur = jnp.asarray(rng.normal(size=(tt, b, dout)), jnp.bfloat16)
+    logit, theta, v_th = (jnp.asarray(a, jnp.bfloat16) for a in (
+        rng.normal(size=dout) + 1.5, rng.uniform(0.5, 1.5, dout),
+        rng.uniform(0.3, 1.2, dout)))
+    ref_params = dataclasses.replace(ref_init_lif((dout,), dtype=jnp.bfloat16),
+                                     alpha_logit=logit, theta=theta, v_th=v_th)
+    sp_r, vf_r = ref_ops.lif_op(cur, ref_params)
+
+    def tb(a):
+        return t(jnp.asarray(a, jnp.float32)).to(torch.bfloat16)
+
+    params = init_lif_params((dout,), dtype=torch.bfloat16)
+    params = dataclasses.replace(params, alpha_logit=tb(logit), theta=tb(theta),
+                                 v_th=tb(v_th))
+    sp, vf = lif_op(tb(cur), params)
+    assert sp.dtype == torch.bfloat16 and vf.dtype == torch.bfloat16
+    np.testing.assert_array_equal(sp.float().numpy(), np.asarray(sp_r, np.float32))
+    np.testing.assert_array_equal(vf.float().numpy(), np.asarray(vf_r, np.float32))
+
+
+def test_lif_op_equals_reference_on_f32_conv_layout():
+    tt, b, oc, oi = 5, 3, 6, 33
+    rng = np.random.default_rng(12)
+    cur = rng.normal(size=(tt, b, oc, oi)).astype(np.float32)
+    v0 = rng.normal(size=(b, oc, oi)).astype(np.float32)
+    for start in (None, v0):
+        ref_start = None if start is None else jnp.asarray(start)
+        sp_r, vf_r = ref_ops.lif_op(jnp.asarray(cur), ref_init_lif(
+            (oc, 1), alpha=0.8, theta=0.7, v_th=0.4), ref_start)
+        sp, vf = lif_op(t(cur), init_lif_params((oc, 1), alpha=0.8, theta=0.7,
+                                                v_th=0.4),
+                        None if start is None else t(start))
+        np.testing.assert_array_equal(sp.numpy(), np.asarray(sp_r))
+        np.testing.assert_allclose(vf.numpy(), np.asarray(vf_r), atol=1e-5, rtol=1e-5)
+
+
+# ops that building a LIF's operands per call would send: the broadcast
+# copies, the zero start, the casts and the decay's sigmoid chain
+OPERAND_OPS = {"zeros", "zero_", "fill_", "new_zeros", "clone", "_to_copy", "copy_",
+               "exp", "sigmoid", "reciprocal", "neg", "add", "mul", "div",
+               "expand", "full"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_cuda_cells_build_no_lif_operands_per_call(dtype, monkeypatch):
+    """The ``cuda`` conv and FC cells hand their LIF the operands made when
+    the cell was built: inside ``lif_op``, with the kernel wrapper stubbed,
+    nothing but views reaches the dispatcher.  The conv's currents come in
+    its (OC, T x B, OI) order and are made contiguous before the count:
+    flattening them is the conv output's layout copy, not the LIF's
+    operands."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.api import init_snn, make_mask_pytree
+    from repro_torch.kernels import ops
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+            self.on = True
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if self.on:
+                self.seen.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    counter = Ops()
+    lif_calls = []
+
+    def stub(cur, v0, alpha, theta, v_th, *, inner=1):   # the kernel, stubbed
+        lif_calls.append((tuple(cur.shape), v0, alpha.shape[0], inner, alpha.dtype))
+        counter.on = False
+        out = (torch.zeros_like(cur), torch.zeros_like(cur[0]))
+        counter.on = True
+        return out
+
+    def counted(currents, *args, **kwargs):
+        currents = currents.contiguous()
+        with counter:
+            return real_lif_op(currents, *args, **kwargs)
+
+    real_lif_op = ops.lif_op
+    monkeypatch.setattr(ops, "lif_update_fused", stub)
+    monkeypatch.setattr(ops, "lif_op", counted)
+    params = init_snn(0, SMALL, dtype=dtype)
+    masks = {g: [m.to(dtype) for m in ms]
+             for g, ms in make_mask_pytree(params, 0.5).items()}
+    bound = compile_snn(SMALL)._bind(params, "cuda", masks=masks, device="cpu")
+    frames = t(spike_frames(0, (4, SMALL.timesteps, SMALL.conv_specs[0][1],
+                                SMALL.input_width)))
+    bound.batch(frames)
+    n_conv, n_fc = len(SMALL.conv_specs), len(SMALL.fc_specs)
+    assert len(lif_calls) == n_conv + n_fc
+    for shape, v0, c, inner, p_dtype in lif_calls[:n_conv]:   # f32 membranes
+        assert v0 is None and p_dtype == torch.float32 and inner == shape[1] // (4 * c)
+    for shape, v0, c, inner, p_dtype in lif_calls[n_conv:]:
+        assert v0 is None and p_dtype == dtype and inner == 1 and shape[1] == 4 * c
+    assert not set(counter.seen) & OPERAND_OPS, counter.seen
+    assert set(counter.seen) <= {"view", "_unsafe_view", "alias"}, counter.seen
+
+
+def test_cuda_fc_cell_refuses_lif_parameters_wider_than_its_currents_when_built():
+    from repro_torch.api import init_snn
+
+    params = init_snn(0, SMALL, dtype=torch.bfloat16)
+    lif = params["fc"][0]["lif"]
+    params["fc"][0]["lif"] = dataclasses.replace(
+        lif, alpha_logit=lif.alpha_logit.float(), theta=lif.theta.float(),
+        v_th=lif.v_th.float())
+    with pytest.raises(TypeError, match="float32 against torch.bfloat16"):
+        compile_snn(SMALL)._bind(params, "cuda", device="cpu")
+    # the conv's membrane is f32: bf16 parameters there are promoted
+    compile_snn(SMALL)._bind(init_snn(0, SMALL, dtype=torch.bfloat16), "cuda",
+                             device="cpu")
 
 
 def test_wrappers_take_float32_only():
