@@ -16,5 +16,6 @@ One module per table, each with the reference script's ``NAME``,
   (trains the model on a device).
 
 The two that touch tensors take ``--device`` and run on the card unless
-it names the CPU.
+it names the CPU.  Beside them, :mod:`~repro_torch.bench.span_cost`
+times the serving worker's spans, alone and in a cell of the benchmark.
 """

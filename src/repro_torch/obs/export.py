@@ -27,7 +27,12 @@ Layout:
 * per-layer timings from
   :func:`~repro_torch.plan.streaming.profile_layer_steps` land as ``X``
   (complete) events on a dedicated ``layers`` process so kernel-level
-  cost sits beside request-level latency.
+  cost sits beside request-level latency;
+* the serving worker's spans (the dump's ``spans``, the port's addition
+  to the reference's layout) land as nested ``X`` events on a ``worker``
+  process, one track per thread, after everything else; a span that
+  began before the first request event is clipped to it, and each
+  ``batcher.gather`` span carries its batch's size, bucket and flush.
 
 :func:`validate_perfetto` is the schema gate shared by the tests, the
 bench, and the obs-smoke CI job: required keys, monotonic ``ts`` per
@@ -84,8 +89,9 @@ def to_perfetto(dump: Dict[str, Any],
     def abs_t(trace, ev):
         return float(trace.get("t0", 0.0)) + float(ev["t_rel_s"])
 
+    spans = dump.get("spans") or []
     t_min = min((abs_t(tr, tr["events"][0]) for tr in traces),
-                default=0.0)
+                default=min((sp["t0"] for sp in spans), default=0.0))
 
     events: List[Dict[str, Any]] = []
     pids: Dict[str, int] = {}
@@ -150,6 +156,31 @@ def to_perfetto(dump: Dict[str, Any],
                            "cat": "layer",
                            "args": {"ms_per_step": float(ms)}})
             cursor += dur
+
+    if spans:
+        pid = pid_of("worker")
+        batches = {b["batch"]: b for b in dump.get("batches", ())}
+        threads = sorted({sp["thread"] for sp in spans})
+        for tid, thread in enumerate(threads, 1):
+            events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                           "tid": tid, "args": {"name": f"worker-{thread}"}})
+        tids = {thread: tid for tid, thread in enumerate(threads, 1)}
+        # parents before their children at one start: longest first
+        for sp in sorted(spans, key=lambda sp: (sp["t0"], -sp["t1"])):
+            t0 = max(sp["t0"], t_min)
+            if sp["t1"] < t0:
+                continue
+            args = {"batch": sp["batch"], "span": sp["id"],
+                    "parent": sp["parent"]}
+            if sp["name"] == "batcher.gather" and sp["batch"] in batches:
+                b = batches[sp["batch"]]
+                args.update(n_real=b["n_real"], bucket=b["bucket"],
+                            flush=b["flush"], late_s=b["late_s"])
+            events.append({"ph": "X", "name": sp["name"], "pid": pid,
+                           "tid": tids[sp["thread"]],
+                           "ts": (t0 - t_min) * _US,
+                           "dur": (sp["t1"] - t0) * _US, "cat": "span",
+                           "args": args})
 
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 

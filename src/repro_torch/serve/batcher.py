@@ -47,13 +47,14 @@ import concurrent.futures
 import dataclasses
 import heapq
 import itertools
+import math
 import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.obs.trace import tadd, tfinish
+from repro_torch.obs.trace import span, span_log, tadd, tfinish
 
 __all__ = [
     "ServeFuture",
@@ -443,10 +444,19 @@ class MicroBatcher:
         leave ``DeadlineExceeded`` futures unresolved past their round.
         """
         wait_deadline = None if timeout is None else self._clock() + timeout
+        log = span_log()   # None unless tracing or a profiler is on
         while True:
             expired: List[Request] = []
-            with self._cond:
-                out = self._gather_round_locked(wait_deadline, expired)
+            if log is not None:
+                log.no_batch()
+                log.enter("batcher.wait")
+            try:
+                with self._cond:
+                    out = self._gather_round_locked(wait_deadline, expired,
+                                                    log)
+            finally:
+                if log is not None:   # the wait, or the gather after it
+                    log.exit()
             if expired:
                 err = DeadlineExceeded(
                     "request deadline expired while queued")
@@ -456,26 +466,38 @@ class MicroBatcher:
                 continue
             if out is None:
                 return None
-            reqs, depth = out
+            reqs, depth, kind, t_flush, late_s = out
             bucket = bucket_for(len(reqs), self.buckets)
-            frames = np.zeros((bucket,) + self.frame_shape,
-                              dtype=np.float32)
-            # trace timestamps stay on perf_counter even under a fake
-            # batcher clock — spans must be comparable across events
-            t_form = time.perf_counter()
-            for i, r in enumerate(reqs):
-                frames[i] = r.iq
-                tadd(r.trace, "batch-form", t=t_form, bucket=bucket,
-                     n_real=len(reqs), n_padded=bucket - len(reqs))
+            with span("batcher.form"):
+                frames = np.zeros((bucket,) + self.frame_shape,
+                                  dtype=np.float32)
+                # trace timestamps stay on perf_counter even under a fake
+                # batcher clock — spans must be comparable across events
+                t_form = time.perf_counter()
+                batch_id = log.current_batch() if log is not None else None
+                for i, r in enumerate(reqs):
+                    frames[i] = r.iq
+                    tadd(r.trace, "batch-form", t=t_form, bucket=bucket,
+                         n_real=len(reqs), n_padded=bucket - len(reqs),
+                         batch=batch_id)
+            if log is not None:
+                log.record_batch(len(reqs), bucket, kind, late_s,
+                                 (t_flush - r.t_enqueue for r in reqs))
             return MicroBatch(requests=reqs, bucket=bucket, frames=frames,
                               queue_depth=depth)
 
     def _gather_round_locked(self, wait_deadline: Optional[float],
-                             expired: List[Request]):
-        """One gathering round under ``_cond``: a ``(reqs, depth)`` batch,
-        None (timeout / close), or ``_RETRY`` (round produced only
-        expired/cancelled requests — the caller fails ``expired`` outside
-        the lock and calls again)."""
+                             expired: List[Request], log=None):
+        """One gathering round under ``_cond``: a ``(reqs, depth, kind,
+        t_flush, late_s)`` batch (the flush's kind of :data:`~repro_torch.
+        obs.trace.FLUSH_KINDS`, its time on the batcher's clock and, for a
+        timeout flush, how far past ``max_delay`` after the first pop it
+        came, else NaN), None (timeout / close), or ``_RETRY`` (round
+        produced only expired/cancelled requests — the caller fails
+        ``expired`` outside the lock and calls again).  With a span
+        ``log``, the first live pop ends the caller's open
+        ``batcher.wait`` span, starts the batch and opens
+        ``batcher.gather`` in its place."""
         # -- phase 1: first live request (or timeout / close) ---------------
         while True:
             if self._closed:
@@ -494,10 +516,15 @@ class MicroBatcher:
                 if remaining <= 0:
                     return None
             self._cond.wait(timeout=remaining)
+        if log is not None:
+            log.new_batch()
+            log.exit()
+            log.enter("batcher.gather")
         # -- phase 2: gather until full / max_delay / pace -------------------
         reqs = [first]
         form_deadline = self._clock() + self.max_delay_s
         gather_deadline = max(form_deadline, self._next_flush)
+        waited_at_gate = False
         while not self._closed:
             now = self._clock()
             full = len(reqs) >= self.max_batch
@@ -513,6 +540,7 @@ class MicroBatcher:
             # full-but-paced waits for the gate; partial waits for more
             # requests (a submit notifies) or the forming deadline
             until = self._next_flush if full else gather_deadline
+            waited_at_gate |= full
             self._cond.wait(timeout=max(0.0, until - now))
         # -- phase 3: pace gate — serialize flushes ---------------------------
         if self.pace_s > 0 and not self._closed:
@@ -520,7 +548,15 @@ class MicroBatcher:
                 now = self._clock()
                 if now >= self._next_flush or self._closed:
                     break
+                waited_at_gate = True
                 self._cond.wait(timeout=self._next_flush - now)
+        full = len(reqs) >= self.max_batch
+        if self._closed:
+            kind = "close"
+        elif waited_at_gate or (not full and gather_deadline > form_deadline):
+            kind = "pace"     # held by the pace gate, or gathered up to it
+        else:
+            kind = "size" if full else "timeout"
         # flush-time recheck: forming/pacing can outlast a deadline, and a
         # gathered request may have expired or been cancelled since it was
         # popped — it must not ride into the serving step in a batch slot
@@ -547,7 +583,8 @@ class MicroBatcher:
             # the pace slot is consumed only by a real flush —
             # all-expired rounds launch no compute
             self._next_flush = self._clock() + self.pace_s
-        return live, self._depth_locked()
+        late_s = now - form_deadline if kind == "timeout" else math.nan
+        return live, self._depth_locked(), kind, now, late_s
 
     def _mark_handed(self, seq: int) -> None:
         self._mark_handed_all((seq,))

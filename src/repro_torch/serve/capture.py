@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.distributed.sharding import ServeMesh, shard_serve_fn, split_batch
 from repro_torch.kernels.launches import add_launches, record_counts, recording
+from repro_torch.obs.trace import span
 
 __all__ = ["EAGER_BACKENDS", "CapturedStep", "capture_graph", "captures"]
 
@@ -165,22 +166,28 @@ class CapturedStep:
                 gs = self._graphs[shape] = [
                     self._capture(i, tuple(x.shape))
                     for i, x in enumerate(shards)]
-            for g, x in zip(gs, shards):
-                g.host_in.numpy()[...] = x
-                with torch.cuda.device(g.device):
-                    g.static_in.copy_(g.host_in, non_blocking=True)
+            with span("step.copy_in"):
+                for g, x in zip(gs, shards):
+                    g.host_in.numpy()[...] = x
+                    with torch.cuda.device(g.device):
+                        g.static_in.copy_(g.host_in, non_blocking=True)
+            with span("step.replay"):
+                for g in gs:
+                    with torch.cuda.device(g.device):
+                        g.graph.replay()
+            with span("step.copy_out"):
+                for g in gs:
+                    with torch.cuda.device(g.device):
+                        g.host_out.copy_(g.static_out, non_blocking=True)
+            with span("step.sync"):
+                for g in gs:
+                    with torch.cuda.device(g.device):
+                        torch.cuda.current_stream().synchronize()
             for g in gs:
-                with torch.cuda.device(g.device):
-                    g.graph.replay()
-            for g in gs:
-                with torch.cuda.device(g.device):
-                    g.host_out.copy_(g.static_out, non_blocking=True)
-            for g in gs:
-                with torch.cuda.device(g.device):
-                    torch.cuda.current_stream().synchronize()
                 add_launches(g.launches)
             self.replays += 1
-            return np.concatenate([g.host_out.numpy() for g in gs])
+            with span("step.unpack"):
+                return np.concatenate([g.host_out.numpy() for g in gs])
 
     def eager(self, iq: np.ndarray) -> np.ndarray:
         """The same step without a graph: ``fn`` launched op by op on each

@@ -79,7 +79,7 @@ from repro_torch.models.graph import compile_snn, weight_values
 from repro_torch.models.snn import SNNConfig, sparsify_params
 from repro_torch.obs.activity import ActivityObserver
 from repro_torch.obs.metrics import default_registry
-from repro_torch.obs.trace import begin_trace, tadd, tfinish
+from repro_torch.obs.trace import begin_trace, span, tadd, tfinish
 from repro_torch.plan import compile_plan
 from repro_torch.serve.autotune import (
     AutotuneReport,
@@ -614,16 +614,17 @@ class AsyncAMCServeEngine:
         def run(iq: np.ndarray) -> np.ndarray:
             if graphs is not None:
                 return graphs(iq)
-            with torch.inference_mode():
+            with span("step.eager"), torch.inference_mode():
                 return eager(np.asarray(iq, np.float32)).numpy()
 
         def serve_step(iq: np.ndarray):
             host = run(iq)
             if not counters:
                 return host, None
-            n = layout["n_classes"]
-            return host[:, :n], {name: host[:, n + i]
-                                 for i, name in enumerate(layout["names"])}
+            with span("step.unpack"):
+                n = layout["n_classes"]
+                return host[:, :n], {name: host[:, n + i]
+                                     for i, name in enumerate(layout["names"])}
 
         return serve_step, graphs
 
@@ -697,64 +698,11 @@ class AsyncAMCServeEngine:
                 # the batch's futures instead of stranding them.
                 ver = self._route()
                 t_step0 = time.perf_counter()
-                logits, accs = ver.serve_step(batch.frames)
+                with span("engine.step"):
+                    logits, accs = ver.serve_step(batch.frames)
                 t_step1 = time.perf_counter()
-                self._ready.set()   # the first successful step: /readyz 200
-                preds = logits.argmax(-1).astype(np.int32)
-                n_real = batch.n_real
-                if accs is not None:   # padded tail rows never counted
-                    ver.activity.observe(accs, n_real)
-                # the diagnostics mode runs before the futures resolve, so
-                # a caller reading ``stats`` after its results sees them
-                counted: Optional[ServeStats] = None
-                if self.count_activity and ver.sparse is not None:
-                    counted = ServeStats()
-                    frames = sigma_delta_encode_np(batch.frames[:n_real],
-                                                   self.cfg.timesteps)
-                    count_batch_activity(counted, ver.sparse, frames,
-                                         self.cfg)
-                t_done = time.perf_counter()
-                with self._lock:
-                    # serving windows: the engine's from its first enqueue,
-                    # the version's from the first request it served
-                    batch_first = min(r.t_enqueue for r in batch.requests)
-                    self._t_first_enqueue = min(self._t_first_enqueue,
-                                                batch_first)
-                    ver.t_first = min(ver.t_first, batch_first)
-                    for st, t0 in ((self.stats, self._t_first_enqueue),
-                                   (ver.stats, ver.t_first)):
-                        st.requests += n_real
-                        st.record_batch(ver.backend,
-                                        queue_depth=batch.queue_depth,
-                                        padded=batch.n_padded)
-                        st.record_latencies(t_done - r.t_enqueue
-                                            for r in batch.requests)
-                        st.wall_s = max(st.wall_s, t_done - t0)
-                        if counted is not None:
-                            st.accumulations += counted.accumulations
-                            st.fetched_bits += counted.fetched_bits
-                # registry mirrors (family-locked; outside the engine lock)
-                self._m_requests.inc(n_real)
-                self._m_batches.labels(engine=self.name,
-                                       backend=ver.backend).inc()
-                self._m_padded.inc(batch.n_padded)
-                self._m_qdepth.set(batch.queue_depth)
-                for r in batch.requests:
-                    self._m_latency.observe(t_done - r.t_enqueue)
-                    if r.trace is not None:
-                        # the step is batch-wide: every traced rider shares
-                        # the same start/end stamps
-                        r.trace.add("jit-step-start", t=t_step0,
-                                    version=ver.label, backend=ver.backend)
-                        r.trace.add("jit-step-end", t=t_step1)
-                for i, r in enumerate(batch.requests):
-                    if r.future.set_running_or_notify_cancel():
-                        tadd(r.trace, "complete", pred=int(preds[i]))
-                        tfinish(r.trace)
-                        r.future.set_result(int(preds[i]))
-                    else:
-                        tadd(r.trace, "cancelled", at="resolve")
-                        tfinish(r.trace)
+                with span("engine.resolve"):
+                    self._resolve(batch, ver, logits, accs, t_step0, t_step1)
             except Exception as e:  # noqa: BLE001 — fail the batch's futures,
                 # keep the worker alive for the next batch
                 for r in batch.requests:
@@ -764,6 +712,63 @@ class AsyncAMCServeEngine:
             finally:
                 with self._lock:
                     self._busy_s += time.perf_counter() - t_busy0
+
+    def _resolve(self, batch, ver: BoundVersion, logits: np.ndarray, accs,
+                 t_step0: float, t_step1: float) -> None:
+        """After a batch's step: its predictions, the gauges, the stats and
+        registry mirrors, the traces, then each request's future."""
+        self._ready.set()   # the first successful step: /readyz 200
+        preds = logits.argmax(-1).astype(np.int32)
+        n_real = batch.n_real
+        if accs is not None:   # padded tail rows never counted
+            ver.activity.observe(accs, n_real)
+        # the diagnostics mode runs before the futures resolve, so
+        # a caller reading ``stats`` after its results sees them
+        counted: Optional[ServeStats] = None
+        if self.count_activity and ver.sparse is not None:
+            counted = ServeStats()
+            frames = sigma_delta_encode_np(batch.frames[:n_real],
+                                           self.cfg.timesteps)
+            count_batch_activity(counted, ver.sparse, frames, self.cfg)
+        t_done = time.perf_counter()
+        with self._lock:
+            # serving windows: the engine's from its first enqueue,
+            # the version's from the first request it served
+            batch_first = min(r.t_enqueue for r in batch.requests)
+            self._t_first_enqueue = min(self._t_first_enqueue, batch_first)
+            ver.t_first = min(ver.t_first, batch_first)
+            for st, t0 in ((self.stats, self._t_first_enqueue),
+                           (ver.stats, ver.t_first)):
+                st.requests += n_real
+                st.record_batch(ver.backend, queue_depth=batch.queue_depth,
+                                padded=batch.n_padded)
+                st.record_latencies(t_done - r.t_enqueue
+                                    for r in batch.requests)
+                st.wall_s = max(st.wall_s, t_done - t0)
+                if counted is not None:
+                    st.accumulations += counted.accumulations
+                    st.fetched_bits += counted.fetched_bits
+        # registry mirrors (family-locked; outside the engine lock)
+        self._m_requests.inc(n_real)
+        self._m_batches.labels(engine=self.name, backend=ver.backend).inc()
+        self._m_padded.inc(batch.n_padded)
+        self._m_qdepth.set(batch.queue_depth)
+        for r in batch.requests:
+            self._m_latency.observe(t_done - r.t_enqueue)
+            if r.trace is not None:
+                # the step is batch-wide: every traced rider shares
+                # the same start/end stamps
+                r.trace.add("jit-step-start", t=t_step0,
+                            version=ver.label, backend=ver.backend)
+                r.trace.add("jit-step-end", t=t_step1)
+        for i, r in enumerate(batch.requests):
+            if r.future.set_running_or_notify_cancel():
+                tadd(r.trace, "complete", pred=int(preds[i]))
+                tfinish(r.trace)
+                r.future.set_result(int(preds[i]))
+            else:
+                tadd(r.trace, "cancelled", at="resolve")
+                tfinish(r.trace)
 
     # -- model lifecycle (the deploy subsystem's hooks) ---------------------
 

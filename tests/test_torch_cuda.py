@@ -215,6 +215,40 @@ def test_engine_serves_through_the_fused_kernel(cuda):
     np.testing.assert_array_equal(preds, want.cpu().numpy())
 
 
+
+@pytest.mark.cuda
+def test_captured_step_spans_come_in_order_inside_engine_step(cuda, monkeypatch):
+    import time
+
+    from repro_torch.obs import trace
+
+    plan, params, masks = _plan(SMALL, 4, cuda)
+    with AsyncAMCServeEngine(params, SMALL, masks, backend="cuda_fused",
+                             max_batch=8) as engine:
+        engine.classify(_iq(SMALL, 8, 6))     # warm: every bucket captured
+        monkeypatch.setattr(trace, "_tracer", None)
+        trace.enable_tracing()
+        # the worker's poll that was waiting when tracing began records
+        # nothing; its next ones do
+        engine.classify(_iq(SMALL, 8, 6))
+        t0 = time.perf_counter()
+        engine.classify(_iq(SMALL, 13, 7))
+    w = trace._the_log().between(t0, float("inf"))
+    sp = w.spans
+    inner = ["step.copy_in", "step.replay", "step.copy_out", "step.sync"]
+    steps = np.nonzero(sp["name"] == "engine.step")[0]
+    assert len(steps) >= 2 and int(w.batches["n_real"].sum()) == 13
+    for i in steps:
+        kids = np.nonzero(sp["parent"] == sp["id"][i])[0]
+        kids = kids[np.argsort(sp["t0"][kids])]
+        names = list(sp["name"][kids])
+        # the captured step's unpack, then the engine's split of the counters
+        assert names[:4] == inner and names[4:] in (
+            ["step.unpack"], ["step.unpack"] * 2), names
+        assert (sp["t0"][kids[1:]] >= sp["t1"][kids[:-1]]).all()
+        assert sp["t0"][kids[0]] >= sp["t0"][i]
+        assert sp["t1"][kids[-1]] <= sp["t1"][i]
+
 # The layer-by-layer path's conv and FC operands on the paper model at
 # batch 64, T = 8: X' has 512 * W columns, the FCs take 512 rows.
 PAPER_CONVS = [(11, 2, 16, 128), (11, 16, 32, 64), (5, 32, 64, 32)]   # kw, ic, oc, W

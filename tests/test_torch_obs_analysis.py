@@ -873,10 +873,25 @@ def test_fleet_two_replica_timeline_from_dump(weights):
         assert rec["total_s"] >= 0
     assert len(replicas_seen) == 2, "JSQ must have used both replicas"
     assert default_registry().value("repro_fleet_submitted_total") == 12
+    # without the worker's spans (the port's own), the reference's document
+    plain = {k: v for k, v in dump.items() if k not in ("spans", "batches")}
+    doc = to_perfetto(plain)
+    assert validate_perfetto(doc) == []
+    assert ref_obs.validate_perfetto(doc) == []
+    assert doc == ref_obs.to_perfetto(plain)
+    # with them, that document and then the worker track
     doc = to_perfetto(dump)
     assert validate_perfetto(doc) == []
     assert ref_obs.validate_perfetto(doc) == []
-    assert doc == ref_obs.to_perfetto(dump)
+    ref = ref_obs.to_perfetto(dump)["traceEvents"]
+    assert doc["traceEvents"][:len(ref)] == ref
+    (worker,) = [e["pid"] for e in doc["traceEvents"] if e["ph"] == "M"
+                 and e["name"] == "process_name"
+                 and e["args"]["name"] == "worker"]
+    spans = doc["traceEvents"][len(ref):]
+    assert spans and all(e["pid"] == worker for e in spans)
+    assert {e["name"] for e in spans if e["ph"] == "X"} >= {
+        "batcher.gather", "engine.step", "step.eager", "engine.resolve"}
 
 
 class _FakeFleet:
