@@ -141,14 +141,19 @@ class Autoscaler:
     # -- one deterministic control tick -------------------------------------
 
     def _utilization(self, sig: Dict[str, Any]) -> float:
-        """Windowed busy fraction between the previous tick and this one."""
+        """Windowed busy fraction between the previous tick and this one.
+        The busy seconds of batches flushed at a worker's short hold
+        (``held_busy_s``) are left out: an idle worker takes those steps
+        early because it has the time, so they are not load."""
         if self._last is None:
             return 0.0
         dt = sig["t"] - self._last["t"]
         workers = max(1, sig.get("workers", 1))
         if dt <= 0:
             return 0.0
-        busy = sig.get("busy_s", 0.0) - self._last.get("busy_s", 0.0)
+        busy = ((sig.get("busy_s", 0.0) - sig.get("held_busy_s", 0.0))
+                - (self._last.get("busy_s", 0.0)
+                   - self._last.get("held_busy_s", 0.0)))
         return min(1.0, max(0.0, busy / (dt * workers)))
 
     def step(self) -> AutoscaleTick:

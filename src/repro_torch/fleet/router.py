@@ -150,6 +150,7 @@ def merge_stats(parts: List[ServeStats], backend: str = "") -> ServeStats:
         merged.accumulations += p.accumulations
         merged.fetched_bits += p.fetched_bits
         merged.padded_frames += p.padded_frames
+        merged.short_holds += p.short_holds
         merged.wall_s = max(merged.wall_s, p.wall_s)
         for b, n in p.backend_batch_counts().items():
             merged.backend_batch_totals[b] = (
@@ -464,9 +465,9 @@ class FleetRouter:
     def signals(self) -> Dict[str, Any]:
         """One control-plane sample: what the autoscaler (and bench) read.
 
-        Cumulative counters (``busy_s``, ``shed``, ``expired``,
-        ``requests``) are meant to be differenced between ticks; ``p99_ms``
-        and ``queue_depth`` are instantaneous.
+        Cumulative counters (``busy_s``, ``held_busy_s``, ``shed``,
+        ``expired``, ``requests``) are meant to be differenced between
+        ticks; ``p99_ms`` and ``queue_depth`` are instantaneous.
         """
         reps = self._snapshot()
         with self._lock:
@@ -479,6 +480,7 @@ class FleetRouter:
             "p99_ms": self.recent_p99_ms(),
             "requests": sum(r.engine.stats.requests for r in reps),
             "busy_s": sum(r.engine.busy_s for r in reps),
+            "held_busy_s": sum(r.engine.held_busy_s for r in reps),
             "workers": sum(r.engine.n_workers for r in reps),
             "shed": shed,
             "shed_by_reason": shed_by_reason,

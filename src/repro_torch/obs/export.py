@@ -175,7 +175,8 @@ def to_perfetto(dump: Dict[str, Any],
             if sp["name"] == "batcher.gather" and sp["batch"] in batches:
                 b = batches[sp["batch"]]
                 args.update(n_real=b["n_real"], bucket=b["bucket"],
-                            flush=b["flush"], late_s=b["late_s"])
+                            flush=b["flush"], late_s=b["late_s"],
+                            hold_s=b.get("hold_s"))
             events.append({"ph": "X", "name": sp["name"], "pid": pid,
                            "tid": tids[sp["thread"]],
                            "ts": (t0 - t_min) * _US,

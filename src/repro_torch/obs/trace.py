@@ -24,9 +24,10 @@ that serves it, in order: ``batcher.wait`` (for the first live request),
 ``step.eager``, then ``engine.resolve`` (predictions, stats and every
 future).  Each span keeps its batch id, its parent span, its thread, and
 its start and end on ``perf_counter``; each batch keeps its size, bucket,
-flush kind and, for a timeout flush, how late the flush came; each
-request its queue wait.  A wait that outlasts the consumer's poll is
-several ``batcher.wait`` spans in a row, the last one carrying the batch.
+flush kind, the hold it was gathered under and, for a timeout flush, how
+late past that hold the flush came; each request its queue wait.  A wait
+that outlasts the consumer's poll is several ``batcher.wait`` spans in a
+row, the last one carrying the batch.
 :meth:`SpanLog.between` reads a window.
 
 Cost model: both are **off by default**.  Request tracing is on while
@@ -390,7 +391,8 @@ class SpanLog:
         self.spans = _Ring(capacity, name="h", id="q", parent="q",
                            batch="q", thread="q", t0="d", t1="d")
         self.batches = _Ring(max(1, capacity // 4), batch="q", n_real="i",
-                             bucket="i", kind="b", late_s="d", t0="d")
+                             bucket="i", kind="b", late_s="d", hold_s="d",
+                             t0="d")
         self.waits = _Ring(capacity, batch="q", wait_s="d", t0="d")
         self._scopes = {n: _Scope(self, n) for n in SPAN_NAMES}
 
@@ -452,10 +454,12 @@ class SpanLog:
         return self._scopes[name]
 
     def record_batch(self, n_real: int, bucket: int, kind: str,
-                     late_s: float, waits_s: Iterable[float]) -> None:
+                     late_s: float, waits_s: Iterable[float],
+                     hold_s: float = math.nan) -> None:
         """This thread's current batch as flushed: its size, bucket, flush
-        kind, lateness (a timeout flush's, else NaN) and each request's
-        queue wait, on the batcher's clock."""
+        kind, lateness (a timeout flush's past its hold, else NaN), each
+        request's queue wait, on the batcher's clock, and the hold it
+        was gathered under (seconds)."""
         st = self._state()
         waits = np.fromiter(waits_s, np.float64)
         with self._lock:
@@ -466,6 +470,7 @@ class SpanLog:
             r["bucket"][i] = bucket
             r["kind"][i] = _KIND_ID[kind]
             r["late_s"][i] = late_s
+            r["hold_s"][i] = hold_s
             r["t0"][i] = st.batch_t0
             idx = self.waits.reserve_many(len(waits))
             c = self.waits.cols
@@ -504,7 +509,7 @@ class SpanWindow:
     ``spans``: ``name``, ``id``, ``parent`` (-1 at a batch's top level),
     ``batch`` (-1 outside a batch), ``thread``, ``t0``, ``t1``;
     ``batches``: ``batch``, ``n_real``, ``bucket``, ``kind``, ``late_s``,
-    ``t0``; ``waits``: ``batch``, ``wait_s``, ``t0``.
+    ``hold_s``, ``t0``; ``waits``: ``batch``, ``wait_s``, ``t0``.
     """
 
     spans: Dict[str, np.ndarray]
@@ -533,6 +538,8 @@ class SpanWindow:
                          "flush": str(b["kind"][i]),
                          "late_s": (None if math.isnan(b["late_s"][i])
                                     else float(b["late_s"][i])),
+                         "hold_s": (None if math.isnan(b["hold_s"][i])
+                                    else float(b["hold_s"][i])),
                          "t0": float(b["t0"][i])}
                         for i in range(len(b["batch"]))],
         }

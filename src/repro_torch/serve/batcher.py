@@ -12,9 +12,12 @@ Flush policy (the standard dynamic-batching trade-off):
 
 * **size flush** — the batch reaches ``max_batch`` requests: ship now,
   throughput-optimal;
-* **timeout flush** — ``max_delay`` elapsed since the batch started
-  forming: ship what we have (padded up to the smallest covering bucket),
-  bounding added tail latency to ``max_delay`` under light traffic;
+* **timeout flush** — the hold elapsed since the batch started forming:
+  ship what we have (padded up to the smallest covering bucket).  The
+  hold is ``max_delay``, or the consumer's own recent service time where
+  it passes one and that is shorter (``get_batch(hold_s=...)``): an idle
+  worker that waits longer than one step costs for more requests saves
+  less than it waits.  Added latency stays bounded by ``max_delay``;
 * **pace gate** (``pace_ms > 0``) — consecutive flushes are at least
   ``pace_ms`` apart, bounding batch-launch rate (the fleet tier uses this
   as the per-replica service-rate cap; the batch keeps filling while the
@@ -135,6 +138,7 @@ class MicroBatch:
     bucket: int               # fixed batch shape this batch was padded to
     frames: np.ndarray        # (bucket, IC, L) — rows >= n_real are padding
     queue_depth: int          # backlog remaining in the queue at flush time
+    short_hold: bool = False  # a timeout flush held shorter than max_delay
 
     @property
     def n_real(self) -> int:
@@ -250,8 +254,9 @@ class MicroBatcher:
         self.n_expired = 0     # requests failed fast on a passed deadline
         self.n_rejected = 0    # submits refused by the max_queue bound
         self.n_cancelled = 0   # cancelled futures dropped at dequeue
-        # optional registry mirrors ({"expired"/"rejected"/"cancelled":
-        # inc()-able}) — the engine wires its labeled metric children here
+        # optional registry mirrors ({"expired"/"rejected"/"cancelled"/
+        # "short_holds": inc()-able}) — the engine wires its labeled
+        # metric children here
         self._obs = dict(obs_counters or {})
 
     def _obs_inc(self, key: str) -> None:
@@ -429,14 +434,17 @@ class MicroBatcher:
     #: expired futures now and start another round
     _RETRY = object()
 
-    def get_batch(self, timeout: Optional[float] = None) -> Optional[MicroBatch]:
+    def get_batch(self, timeout: Optional[float] = None,
+                  hold_s: Optional[float] = None) -> Optional[MicroBatch]:
         """Block for the next batch; None on timeout or close.
 
         Waits for a first live request, then keeps draining the queues
-        until the batch is full (**size flush**) or ``max_delay`` has
-        elapsed since the batch started forming (**timeout flush**).  With
-        a pace gate the batch keeps filling until the gate opens, and
-        flushes are serialized at least ``pace_ms`` apart.
+        until the batch is full (**size flush**) or the hold has elapsed
+        since the batch started forming (**timeout flush**): ``max_delay``,
+        or ``hold_s`` where that is shorter (the consumer's own recent
+        service time, in seconds).  With a pace gate the batch keeps
+        filling until the gate opens, and flushes are serialized at least
+        ``pace_ms`` apart.
 
         Expired requests are failed (outside the lock) at the end of
         *every* gathering round, never held until this call returns — a
@@ -453,7 +461,7 @@ class MicroBatcher:
             try:
                 with self._cond:
                     out = self._gather_round_locked(wait_deadline, expired,
-                                                    log)
+                                                    log, hold_s)
             finally:
                 if log is not None:   # the wait, or the gather after it
                     log.exit()
@@ -466,7 +474,10 @@ class MicroBatcher:
                 continue
             if out is None:
                 return None
-            reqs, depth, kind, t_flush, late_s = out
+            reqs, depth, kind, t_flush, late_s, hold = out
+            short = kind == "timeout" and hold < self.max_delay_s
+            if short:
+                self._obs_inc("short_holds")
             bucket = bucket_for(len(reqs), self.buckets)
             with span("batcher.form"):
                 frames = np.zeros((bucket,) + self.frame_shape,
@@ -482,17 +493,19 @@ class MicroBatcher:
                          batch=batch_id)
             if log is not None:
                 log.record_batch(len(reqs), bucket, kind, late_s,
-                                 (t_flush - r.t_enqueue for r in reqs))
+                                 (t_flush - r.t_enqueue for r in reqs), hold)
             return MicroBatch(requests=reqs, bucket=bucket, frames=frames,
-                              queue_depth=depth)
+                              queue_depth=depth, short_hold=short)
 
     def _gather_round_locked(self, wait_deadline: Optional[float],
-                             expired: List[Request], log=None):
+                             expired: List[Request], log=None,
+                             hold_s: Optional[float] = None):
         """One gathering round under ``_cond``: a ``(reqs, depth, kind,
-        t_flush, late_s)`` batch (the flush's kind of :data:`~repro_torch.
-        obs.trace.FLUSH_KINDS`, its time on the batcher's clock and, for a
-        timeout flush, how far past ``max_delay`` after the first pop it
-        came, else NaN), None (timeout / close), or ``_RETRY`` (round
+        t_flush, late_s, hold)`` batch (the flush's kind of
+        :data:`~repro_torch.obs.trace.FLUSH_KINDS`, its time on the
+        batcher's clock, for a timeout flush how far past the hold after
+        the first pop it came, else NaN, and the hold: ``max_delay``,
+        capping ``hold_s``), None (timeout / close), or ``_RETRY`` (round
         produced only expired/cancelled requests — the caller fails
         ``expired`` outside the lock and calls again).  With a span
         ``log``, the first live pop ends the caller's open
@@ -520,9 +533,11 @@ class MicroBatcher:
             log.new_batch()
             log.exit()
             log.enter("batcher.gather")
-        # -- phase 2: gather until full / max_delay / pace -------------------
+        # -- phase 2: gather until full / the hold / pace ---------------------
         reqs = [first]
-        form_deadline = self._clock() + self.max_delay_s
+        hold = (self.max_delay_s if hold_s is None
+                else min(self.max_delay_s, hold_s))
+        form_deadline = self._clock() + hold
         gather_deadline = max(form_deadline, self._next_flush)
         waited_at_gate = False
         while not self._closed:
@@ -584,7 +599,7 @@ class MicroBatcher:
             # all-expired rounds launch no compute
             self._next_flush = self._clock() + self.pace_s
         late_s = now - form_deadline if kind == "timeout" else math.nan
-        return live, self._depth_locked(), kind, now, late_s
+        return live, self._depth_locked(), kind, now, late_s, hold
 
     def _mark_handed(self, seq: int) -> None:
         self._mark_handed_all((seq,))

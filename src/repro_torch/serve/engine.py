@@ -58,8 +58,10 @@ activity gauges are off under a mesh, as in the reference.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
+import statistics
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -92,7 +94,30 @@ from repro_torch.serve.batcher import EngineClosed, MicroBatcher, QueueFull
 from repro_torch.serve.capture import CapturedStep, captures
 
 __all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "BoundVersion",
-           "ServeStats", "count_batch_activity"]
+           "ServeStats", "count_batch_activity", "worker_hold"]
+
+#: Batches whose busy intervals set a worker's hold, as their median: one
+#: collector pause or one slow step does not set the next hold.
+HOLD_BATCHES = 8
+#: A worker shortens its hold only while its last HOLD_BATCHES batches kept
+#: it busy less than this share of the wall time they span.  A short hold
+#: raises the share by adding steps; a worker serving the f32 fused cell's
+#: full buckets at max_delay reads 0.34-0.38 on an H100 host, and one
+#: pushed to 0.46-0.53 there took enough of the interpreter lock from the
+#: client to fall behind its load.
+HOLD_BUSY_MAX = 0.4
+
+
+def worker_hold(busy_s: Sequence[float],
+                cycle_s: Sequence[float]) -> Optional[float]:
+    """The hold a serving worker passes to ``get_batch``: the median of its
+    recent busy intervals ``busy_s``.  None, the batcher's ``max_delay``,
+    before its first batch and while those intervals fill
+    :data:`HOLD_BUSY_MAX` or more of ``cycle_s``, each batch's wall time
+    from the end of the one before (the wait for it included)."""
+    if not busy_s or sum(busy_s) >= HOLD_BUSY_MAX * sum(cycle_s):
+        return None
+    return statistics.median(busy_s)
 
 
 @dataclasses.dataclass
@@ -110,11 +135,13 @@ class ServeStats:
     latencies_s: List[float] = dataclasses.field(default_factory=list)
     queue_depths: List[int] = dataclasses.field(default_factory=list)
     padded_frames: int = 0
+    short_holds: int = 0   # timeout flushes held shorter than max_delay
 
     def record_batch(self, backend: str, queue_depth: Optional[int] = None,
-                     padded: int = 0) -> None:
+                     padded: int = 0, short_hold: bool = False) -> None:
         self.batches += 1
         self.padded_frames += padded
+        self.short_holds += short_hold
         self.backend_batch_totals[backend] = (
             self.backend_batch_totals.get(backend, 0) + 1)
         if queue_depth is not None:
@@ -170,6 +197,7 @@ class ServeStats:
             "p99_ms": self.p99_ms,
             "mean_queue_depth": self.mean_queue_depth(),
             "padded_frames": self.padded_frames,
+            "short_holds": self.short_holds,
             "accumulations": self.accumulations,
             "fetched_bits": self.fetched_bits,
             "wall_s": self.wall_s,
@@ -447,6 +475,11 @@ class AsyncAMCServeEngine:
                 "repro_serve_cancelled_total",
                 "Cancelled futures dropped without a batch slot",
                 ("engine",)).labels(engine=eng),
+            "short_holds": reg.counter(
+                "repro_serve_short_holds_total",
+                "Timeout flushes held for the worker's recent service time, "
+                "shorter than max_delay",
+                ("engine",)).labels(engine=eng),
         }
 
         ic0 = cfg.conv_specs[0][1]
@@ -512,6 +545,7 @@ class AsyncAMCServeEngine:
         self._t_first_enqueue = float("inf")  # start of the serving window
         self._t_started = time.perf_counter()
         self._busy_s = 0.0  # worker seconds spent serving batches
+        self._held_busy_s = 0.0  # ... of them, batches a short hold flushed
         self._stop = threading.Event()
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
@@ -684,10 +718,18 @@ class AsyncAMCServeEngine:
             return ver if ver is not None else self._versions[self._primary]
 
     def _worker(self) -> None:
+        """One serving thread.  It holds a partial batch for its own recent
+        service time, as :func:`worker_hold` sets it from its last
+        :data:`HOLD_BATCHES` batches: waiting longer for more requests saves
+        less than one step costs."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        busy_s = collections.deque(maxlen=HOLD_BATCHES)
+        cycle_s = collections.deque(maxlen=HOLD_BATCHES)
+        t_end = time.perf_counter()
         while not self._stop.is_set():
-            batch = self.batcher.get_batch(timeout=0.1)
+            batch = self.batcher.get_batch(
+                timeout=0.1, hold_s=worker_hold(busy_s, cycle_s))
             if batch is None:
                 continue
             t_busy0 = time.perf_counter()
@@ -710,8 +752,13 @@ class AsyncAMCServeEngine:
                     tfinish(r.trace)
                     _fail_future(r.future, e)
             finally:
+                t_prev, t_end = t_end, time.perf_counter()
+                busy_s.append(t_end - t_busy0)
+                cycle_s.append(t_end - t_prev)
                 with self._lock:
-                    self._busy_s += time.perf_counter() - t_busy0
+                    self._busy_s += busy_s[-1]
+                    if batch.short_hold:
+                        self._held_busy_s += busy_s[-1]
 
     def _resolve(self, batch, ver: BoundVersion, logits: np.ndarray, accs,
                  t_step0: float, t_step1: float) -> None:
@@ -741,7 +788,8 @@ class AsyncAMCServeEngine:
                            (ver.stats, ver.t_first)):
                 st.requests += n_real
                 st.record_batch(ver.backend, queue_depth=batch.queue_depth,
-                                padded=batch.n_padded)
+                                padded=batch.n_padded,
+                                short_hold=batch.short_hold)
                 st.record_latencies(t_done - r.t_enqueue
                                     for r in batch.requests)
                 st.wall_s = max(st.wall_s, t_done - t0)
@@ -885,6 +933,14 @@ class AsyncAMCServeEngine:
         with self._lock:
             return self._busy_s
 
+    @property
+    def held_busy_s(self) -> float:
+        """The part of :attr:`busy_s` spent on batches flushed at a hold
+        shorter than ``max_delay``: steps the worker took early because it
+        had the time, which the load alone would not have asked for."""
+        with self._lock:
+            return self._held_busy_s
+
     def utilization(self) -> float:
         """Busy fraction of the workers' capacity since construction."""
         elapsed = time.perf_counter() - self._t_started
@@ -909,6 +965,7 @@ class AsyncAMCServeEngine:
             "n_cancelled": self.batcher.n_cancelled,
             "workers": self.n_workers,
             "busy_s": self.busy_s,
+            "held_busy_s": self.held_busy_s,
             "utilization": self.utilization(),
             "active_version": self.active_version,
         })

@@ -596,3 +596,58 @@ def test_autoscaler_live_scale_up_lowers_latency(weights):
             f"2 replicas not faster: {t_one:.3f}s -> {t_two:.3f}s")
     finally:
         fleet.close()
+
+
+def test_autoscaler_scales_in_a_light_fleet_whose_workers_take_short_holds(
+        weights):
+    """A real two-replica fleet at light load: each worker's short hold
+    adds steps and lifts its busy share past ``low_utilization``, but the
+    held batches' busy seconds are not load, so the fleet still reads idle
+    and scales in."""
+    make = _factory(weights, max_delay_ms=200.0)
+
+    def slowed(name):                   # a 30 ms step, measurable busy time
+        engine = make(name)
+        ver = engine.get_version(engine.active_version)
+        step = ver.serve_step
+
+        def timed_step(iq):
+            time.sleep(0.03)
+            return step(iq)
+
+        ver.serve_step = timed_step
+        return engine
+
+    fleet = FleetRouter(slowed, replicas=2, max_replicas=2)
+    scaler = Autoscaler(fleet, target_p99_ms=10_000.0, down_patience=3,
+                        cooldown_ticks=0)
+    raw = []                            # each tick's busy share, held in
+    try:
+        sig = fleet.signals()
+        ticks = [scaler.step()]
+        t_tick = time.perf_counter()
+        futures = []
+        while len(ticks) < 10:          # 20 requests a second
+            futures.append(fleet.submit(_iq(1, seed=len(futures))[0]))
+            time.sleep(0.05)
+            if time.perf_counter() - t_tick >= 0.4:
+                prev, sig = sig, fleet.signals()
+                raw.append((sig["busy_s"] - prev["busy_s"])
+                           / ((sig["t"] - prev["t"]) * prev["workers"]))
+                ticks.append(scaler.step())
+                t_tick = time.perf_counter()
+        for f in futures:
+            f.result(timeout=30.0)
+        short_holds = fleet.stats.short_holds
+        n_replicas = fleet.n_replicas
+    finally:
+        fleet.close()
+    actions = [t.action for t in ticks]
+    assert actions.count("scale-down") == 1 and n_replicas == 1
+    down = actions.index("scale-down")
+    assert short_holds > 0
+    # the idle windows up to it (raw[i] ends at tick i + 1) held more
+    # busy seconds than low_utilization; the autoscaler read them idle
+    assert max(raw[:down]) > scaler.low_utilization
+    assert all(t.utilization < scaler.low_utilization
+               for t in ticks[1:down + 1])

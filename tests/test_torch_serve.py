@@ -1,6 +1,8 @@
 """Port serving tier: the batcher contracts of tests/test_serve.py, and the
 engine's predictions against the reference engine's (CPU)."""
+import collections
 import concurrent.futures
+import math
 import threading
 import time
 
@@ -121,6 +123,62 @@ def test_expired_requests_fail_even_while_consumer_keeps_blocking():
     assert not consumer.is_alive()
 
 
+@pytest.fixture
+def span_records(monkeypatch):
+    """Request tracing on for the test (the previous tracer restored); the
+    process's span log, which then records every batch."""
+    from repro_torch.obs import trace
+
+    monkeypatch.setattr(trace, "_tracer", None)
+    trace.enable_tracing()
+    return trace._the_log()
+
+
+@pytest.mark.parametrize(
+    "case,max_delay_ms,pace_ms,hold_s,n,kind,hold",
+    [("no hold waits max_delay", 300.0, 0.0, None, 2, "timeout", 0.3),
+     ("short hold", 2000.0, 0.0, 0.02, 2, "timeout", 0.02),
+     ("hold capped by max_delay", 300.0, 0.0, 5.0, 2, "timeout", 0.3),
+     ("full bucket at once", 2000.0, 0.0, 1.5, 4, "size", 1.5),
+     ("pace gate holds", 2000.0, 300.0, 0.02, 1, "pace", 0.02)])
+def test_batcher_holds_a_partial_batch_for_the_consumer_hold(
+        span_records, case, max_delay_ms, pace_ms, hold_s, n, kind, hold):
+    """A partial batch flushes at first pop + min(max_delay, hold_s), and
+    at first pop + max_delay where the consumer passes no hold; a full
+    bucket ships at once and a pace gate still holds to itself.  Real
+    clock: each bound sits far from the time the other rule would give."""
+    mb = MicroBatcher(FRAME_SHAPE, max_batch=4, max_delay_ms=max_delay_ms,
+                      pace_ms=pace_ms)
+    t_gate = time.perf_counter()
+    if pace_ms:   # a first flush sets the gate pace_ms ahead
+        for _ in range(4):
+            mb.submit(_iq(1)[0])
+        assert mb.get_batch(timeout=1.0).n_real == 4
+    t0 = time.perf_counter()
+    for x in _iq(n):
+        mb.submit(x)
+    batch = mb.get_batch(timeout=1.0, hold_s=hold_s)
+    t1 = time.perf_counter()
+    assert batch is not None and batch.n_real == n
+    w = span_records.between(t0, math.inf)
+    assert list(w.batches["kind"]) == [kind]
+    assert list(w.batches["hold_s"]) == [hold]
+    (late,) = w.batches["late_s"]
+    short = kind == "timeout" and hold < max_delay_ms / 1e3
+    assert batch.short_hold == short
+    if kind == "timeout":
+        # never past max_delay; late_s from the flush's own deadline
+        assert hold <= t1 - t0 < hold + 1.0
+        assert 0.0 <= late <= (t1 - t0) - hold
+    else:
+        assert math.isnan(late)
+    if kind == "size":
+        assert t1 - t0 < 1.0
+    if kind == "pace":
+        assert pace_ms / 1e3 <= t1 - t_gate < pace_ms / 1e3 + 1.0
+    mb.close()
+
+
 def test_batcher_rejects_conflicting_max_batch_and_buckets():
     with pytest.raises(ValueError, match="conflicts with explicit buckets"):
         MicroBatcher(FRAME_SHAPE, max_batch=64, buckets=(2, 4))
@@ -176,6 +234,149 @@ def test_submit_future_path_and_close_never_leaves_a_future_pending(weights):
     assert served + drained == 16
     with pytest.raises(RuntimeError, match="closed"):
         engine.submit(_iq(1)[0])
+
+
+def _slowed(ver, step_s):
+    """Make ``ver``'s served step sleep ``step_s(thread name)`` first."""
+    step = ver.serve_step
+
+    def timed_step(iq):
+        time.sleep(step_s(threading.current_thread().name))
+        return step(iq)
+
+    ver.serve_step = timed_step
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_engine_worker_holds_for_its_own_service_time(weights, span_records,
+                                                      workers):
+    """After its first batch each worker passes the median of its own busy
+    times as the hold: a later one-request batch flushes near that, not at
+    max_delay, and counts as a short hold.  Worker 1's steps take 0.2 s,
+    worker 0's 0.03 s, so their holds cannot mix; a pause between requests
+    keeps each worker busy less than HOLD_BUSY_MAX of its time."""
+    from repro_torch.obs.metrics import default_registry
+
+    step_s = {"amc-serve-worker-0": 0.03, "amc-serve-worker-1": 0.2}
+    hold_range = {"amc-serve-worker-0": (0.03, 0.2),
+                  "amc-serve-worker-1": (0.2, 0.6)}
+    name = f"hold-test-{workers}"
+    before = default_registry().value("repro_serve_short_holds_total",
+                                      engine=name)
+    t0 = time.perf_counter()
+    with _engine(weights, max_batch=4, max_delay_ms=1000.0, warmup=False,
+                 workers=workers, name=name) as engine:
+        _slowed(engine.get_version(engine.active_version), step_s.get)
+        names = {t.native_id: t.name for t in engine._threads}
+        per_thread = collections.Counter()
+        for i in range(60):   # one request at a time: every batch partial
+            engine.classify(_iq(1, seed=i))
+            sp = span_records.between(t0, math.inf).spans
+            per_thread = collections.Counter(
+                names[th] for th in sp["thread"][sp["name"] == "engine.step"])
+            if len(per_thread) == workers and min(per_thread.values()) >= 3:
+                break
+            time.sleep(0.25)
+        stats = engine.stats.summary()
+    w = span_records.between(t0, math.inf)
+    assert len(per_thread) == workers and min(per_thread.values()) >= 3
+    gathers = w.spans["name"] == "batcher.gather"
+    thread_of = dict(zip(w.spans["batch"][gathers], w.spans["thread"][gathers]))
+    gather_s = dict(zip(w.spans["batch"][gathers],
+                        w.spans["t1"][gathers] - w.spans["t0"][gathers]))
+    seen = set()
+    for b, kind, hold in zip(w.batches["batch"], w.batches["kind"],
+                             w.batches["hold_s"]):
+        assert kind == "timeout"
+        thread = names[thread_of[b]]
+        if thread not in seen:          # no batch served yet: max_delay
+            seen.add(thread)
+            assert hold == 1.0 and gather_s[b] >= 1.0
+            continue
+        lo, hi = hold_range[thread]
+        assert lo <= hold < hi
+        assert gather_s[b] < 1.0        # near the hold, not at max_delay
+    n_short = len(w.batches["batch"]) - workers
+    assert stats["short_holds"] == engine.stats.short_holds == n_short
+    assert default_registry().value("repro_serve_short_holds_total",
+                                    engine=name) - before == n_short
+
+
+@pytest.mark.parametrize("case,busy,cycle,hold", [
+    ("before its first batch", [], [], None),
+    ("idle worker", [0.01] * 8, [0.1] * 8, 0.01),
+    ("one slow step does not set it", [0.01] * 7 + [0.5], [0.1] * 7 + [1.0],
+     0.01),
+    ("busy just under the share", [0.035] * 8, [0.1] * 8, 0.035),
+    ("busy half its time", [0.05] * 8, [0.1] * 8, None),
+    ("busy all its time", [0.02] * 8, [0.02] * 8, None)])
+def test_worker_hold_is_the_median_service_time_under_the_busy_share(
+        case, busy, cycle, hold):
+    """The worker's hold: the median of its recent busy intervals while
+    they fill less than HOLD_BUSY_MAX of their wall time, else (and before
+    any batch) None, which the batcher reads as max_delay."""
+    from repro_torch.serve.engine import HOLD_BUSY_MAX, worker_hold
+
+    assert 0.35 < HOLD_BUSY_MAX <= 0.5
+    assert worker_hold(busy, cycle) == hold
+
+
+def test_engine_worker_holds_max_delay_while_busy_past_the_share(
+        weights, span_records, monkeypatch):
+    """A load that keeps the worker busy past HOLD_BUSY_MAX at its short
+    hold: the worker passes worker_hold of its own busy and cycle intervals,
+    so it meets both sides of the line; a batch given None waits max_delay
+    and counts as no short hold, the others flush at the short hold."""
+    from repro_torch.serve import engine as engine_mod
+
+    rule = engine_mod.worker_hold
+    calls = []
+
+    def spy(busy_s, cycle_s):
+        out = rule(busy_s, cycle_s)
+        calls.append((list(busy_s), list(cycle_s), out))
+        return out
+
+    monkeypatch.setattr(engine_mod, "worker_hold", spy)
+    t0 = time.perf_counter()
+    with _engine(weights, max_batch=32, max_delay_ms=300.0,
+                 warmup=False) as engine:
+        _slowed(engine.get_version(engine.active_version), lambda _: 0.05)
+        passed = []
+        get_batch = engine.batcher.get_batch
+
+        def spied_get_batch(timeout=None, hold_s=None):
+            batch = get_batch(timeout=timeout, hold_s=hold_s)
+            if batch is not None:
+                passed.append(hold_s)
+            return batch
+
+        engine.batcher.get_batch = spied_get_batch
+        time.sleep(0.15)            # the worker's call in flight returns
+        t0 = time.perf_counter()
+        futures = []
+        while time.perf_counter() - t0 < 2.5:   # 50 requests a second
+            futures.append(engine.submit(_iq(1, seed=len(futures))[0]))
+            time.sleep(0.02)
+        for f in futures:
+            f.result(timeout=10.0)
+        stats = engine.stats.summary()
+    w = span_records.between(t0, math.inf)
+    for busy, cycle, out in calls:
+        assert all(b >= 0.05 for b in busy)       # its own steps' intervals
+        assert all(c >= b for b, c in zip(busy, cycle))
+    holds = [0.3 if h is None else min(0.3, h) for h in passed]
+    assert list(w.batches["hold_s"]) == pytest.approx(holds)
+    assert None in passed[1:] and any(h is not None for h in passed)
+    gathers = w.spans["name"] == "batcher.gather"
+    gather_s = dict(zip(w.spans["batch"][gathers],
+                        w.spans["t1"][gathers] - w.spans["t0"][gathers]))
+    for b, kind, hold in zip(w.batches["batch"], w.batches["kind"],
+                             w.batches["hold_s"]):
+        if kind == "timeout":
+            assert gather_s[b] >= hold
+    short = (w.batches["kind"] == "timeout") & (w.batches["hold_s"] < 0.3)
+    assert 0 < short.sum() == stats["short_holds"]
 
 
 def test_classify_timeout_cancels_queued_futures(weights):
