@@ -1,8 +1,10 @@
 """One run of one cell: set-up, the measured window, the check.
 
-Set-up makes the frame pool and the model from the seed, builds the
-configuration's engine (its backend pinned: no race) with every bucket
-captured, and starts the load, which runs ``warm_s`` before the window.
+Set-up makes the frame pool (frames of the configuration's
+``input_width``, of the mix's ``frames`` set) and the model from the seed,
+builds the configuration's engine (its backend pinned: no race) with every
+bucket captured, and starts the load, which runs ``warm_s`` before the
+window.
 The window lasts ``seconds``; after it the load drains (a minute at most).
 With ``trace`` the same traffic then runs once more under
 ``torch.profiler`` for the traced window (``trace.py``).  Then the peak
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from amcbench import check, spec
-from amcbench.frames import make_pool
+from amcbench.frames import DEFAULT_SET, make_pool
 from amcbench.load import OK, Load
 from amcbench.model import make_model, program_params, snn_config
 from amcbench.probe import StepProbe
@@ -160,7 +162,7 @@ def _q(x: np.ndarray) -> Dict[str, float]:
     return {"p50": float(np.median(x)), "p99": float(np.percentile(x, 99))}
 
 
-def window_detail(run: Run, pauses: GcPauses, max_delay_ms: float) -> Dict[str, Any]:
+def window_detail(run: Run, pauses: GcPauses) -> Dict[str, Any]:
     """From the window's own records, for the run's earlier lines: the
     longest steps and gaps between steps, with the collector's long passes
     inside each; and each request's
@@ -168,9 +170,7 @@ def window_detail(run: Run, pauses: GcPauses, max_delay_ms: float) -> Dict[str, 
     its step (sent to the step's start: the batch forming and the queue),
     the step, and its future's resolution after the step.  A request's
     step is the last that returned before it resolved (one worker resolves
-    a batch's futures before its next step); a batch the timeout flushed
-    started ``flush_late_ms`` after its first request was sent plus
-    ``max_delay_ms``."""
+    a batch's futures before its next step)."""
     load, probe, t0, t1 = run.load, run.probe, run.t0, run.t1
     out: Dict[str, Any] = {}
     n = min(probe.n, len(probe.t_call))
@@ -199,13 +199,33 @@ def window_detail(run: Run, pauses: GcPauses, max_delay_ms: float) -> Dict[str, 
             "late": _q((sent - due) * 1e3), "wait": _q((calls[k] - sent) * 1e3),
             "step": _q((backs[k] - calls[k]) * 1e3),
             "resolve": _q((done - backs[k]) * 1e3)}
-        # requests are sent in order, so a step's first is its earliest
-        steps, first, size = np.unique(k, return_index=True, return_counts=True)
-        part = size < run.max_batch
-        if part.any():
-            over = (calls[steps[part]] - sent[first[part]]) * 1e3 - max_delay_ms
-            out["flush_late_ms"] = {**_q(over), "batches": int(part.sum())}
+    late = flush_lateness(run)
+    if late is not None:
+        out["flush_late_ms"] = late
     return out
+
+
+def flush_lateness(run: Run) -> Optional[Dict[str, Any]]:
+    """How late the traced window's timeout flushes came past their own
+    hold (first pop + ``hold_s``), in ms, with the median hold, from the
+    program's span log's batch records (their ``late_s``, on the batcher's
+    clock).  None where the run has no such records: no traced window, a
+    program without the span log, lost records, or no timeout flush."""
+    if run.sub0 is None:
+        return None
+    try:
+        from repro_torch.obs.trace import span_window
+    except ImportError:   # a program without the span log
+        return None
+    w = span_window(run.sub0["t"], run.sub1["t"])
+    if w is None:
+        return None
+    timeout = w.batches["kind"] == "timeout"
+    if not timeout.any():
+        return None
+    return {**_q(w.batches["late_s"][timeout] * 1e3),
+            "hold_p50": float(np.median(w.batches["hold_s"][timeout])) * 1e3,
+            "batches": int(timeout.sum())}
 
 
 def card() -> str:
@@ -238,7 +258,9 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float,
 
     t = time.perf_counter()
     pool, _, _ = make_pool(seed, pool_frames or int(traffic["pool_frames"]),
-                           range(*traffic["snr_db"]))
+                           range(*traffic["snr_db"]),
+                           length=int(cfg["model"]["input_width"]),
+                           frames=traffic.get("frames", DEFAULT_SET))
     info["pool_s"] = time.perf_counter() - t
     t = time.perf_counter()
     model = make_model(cfg, seed, dev)
@@ -287,7 +309,7 @@ def run_cell(root: pathlib.Path, workload: str, seed: int, seconds: float,
 
     info["wake_late_ms"] = wake_late_ms()
     info["gc_passes"] = {str(g): v for g, v in sorted(pauses.passes.items())}
-    info.update(window_detail(run, pauses, float(cfg["max_delay_ms"])))
+    info.update(window_detail(run, pauses))
     lat = load.latencies_ms()
     if len(lat):
         info["latency_ms"] = dict(zip(("p50", "p90", "p99", "p999", "max"),

@@ -1,11 +1,17 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
-A cell names a configuration and a traffic mix; the harness reads
-``amcbench/configs/<config>.json`` and ``amcbench/traffic/<traffic>.json``.
-A metric ``<family>[.<suffix>]`` is read by ``amcbench/metrics/<family>.py``
-(its ``read(run, name)``); a kernel's roofline ``<kernel>_roofline`` counts
-its work in ``amcbench/work/<kernel>.py``.  Adding a cell, a mix, a
-configuration or a metric adds files and entries; no file here changes.
+A cell names a configuration and a traffic mix; the harness reads the
+configuration's ``file`` and ``amcbench/traffic/<traffic>.json``, both under
+the root it is given.  The configuration's model group sets the frames'
+length (``input_width``) and the network; the mix's optional ``frames``
+names the modulation set the pool draws (``frames.FRAME_SETS``; absent:
+``"radioml2016.10a"``).  A metric ``<family>[.<suffix>]`` is read by
+``amcbench/metrics/<family>.py`` (its ``read(run, name)``); a kernel's
+roofline ``<kernel>_roofline`` counts its work in
+``amcbench/work/<kernel>.py``.  Adding a cell, a mix, a configuration of
+any SNN the program serves (any frame length, stack of convs and FCs, or
+number of classes) or a metric adds files and entries; no file here
+changes.
 """
 from __future__ import annotations
 
@@ -15,7 +21,9 @@ import json
 import pathlib
 from typing import Any, Dict, List
 
-HERE = pathlib.Path(__file__).resolve().parent
+from amcbench.frames import DEFAULT_SET, FRAME_SETS
+
+TRAFFIC_DIR = pathlib.Path("amcbench") / "traffic"
 
 
 @dataclasses.dataclass
@@ -67,7 +75,11 @@ def resolve(root: pathlib.Path, workload: str) -> Cell:
     w = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
     config = read_json(root / configs[w["config"]]["file"])
-    traffic = read_json(HERE / "traffic" / f"{w['traffic']}.json")
+    traffic = read_json(root / TRAFFIC_DIR / f"{w['traffic']}.json")
+    frames = traffic.get("frames", DEFAULT_SET)
+    if frames not in FRAME_SETS:
+        raise ValueError(f"traffic {w['traffic']!r} names the frame set "
+                         f"{frames!r}; the generator has {sorted(FRAME_SETS)}")
     e2e = [m for m in map(_metric, bench["end_to_end"]) if m.applies_to(workload)]
     per_layer = [m for m in map(_metric, bench["per_layer"])
                  if m.applies_to(workload)]

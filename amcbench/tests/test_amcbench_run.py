@@ -1,6 +1,7 @@
 """A whole run on the CPU at a small size: the last line's schema, the
-check catching each fault a served cell can have and the control, and the
-entry refusing to run without a card."""
+check catching each fault a served cell can have and the control, a
+configuration with frames of its own added as files alone, and the entry
+refusing to run without a card."""
 import ast
 import json
 import pathlib
@@ -44,6 +45,62 @@ def test_last_line_schema(trace):
         assert set(line["breakdown"]) == {"device_ops", "idle_gaps"}
     for name, c in line["checks"].items():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
+    # the timeout flushes' lateness past their own hold, from the span
+    # log's batch records, which only the traced window has
+    late = out["info"].get("flush_late_ms")
+    if trace:
+        assert late["batches"] > 0 and late["p50"] >= 0 and late["p99"] >= late["p50"]
+        assert 0 < late["hold_p50"] <= 5.0
+    else:
+        assert late is None
+
+
+# the O'Shea-Roy-Clancy RadioML 2018.01A stack (seven k3 convs, each pooled
+# by 2, FC to 128, 128 and 24) at 4 channels a conv and 16 FC units
+SNN_2018 = {
+    "model": {"conv_specs": [[3, 2, 4]] + [[3, 4, 4]] * 6, "pool": 2,
+              "fc_specs": [[32, 16], [16, 16], [16, 24]], "input_width": 1024,
+              "timesteps": 8, "n_classes": 24, "readout": "current_sum",
+              "lif_alpha": 0.9, "lif_theta": 1.0, "lif_v_th": 1.0},
+    "dtype": "float32",
+    "densities": {**{f"conv{i}": 0.5 for i in range(1, 8)},
+                  "fc1": 0.5, "fc2": 0.5, "fc3": 0.5},
+    "backend": "cuda", "max_batch": 16, "max_delay_ms": 5.0, "reduced": [],
+    "limits": {"rows_off": 0.01, "answers_off": 0.01},
+}
+
+
+def root_with_new_files(tmp_path):
+    """A root holding nothing but a BENCHMARK.json, the config and a
+    2018.01A traffic file: a configuration added as files alone."""
+    (tmp_path / "amcbench" / "configs").mkdir(parents=True)
+    (tmp_path / "amcbench" / "traffic").mkdir()
+    (tmp_path / "amcbench" / "configs" / "snn-2018-small.json").write_text(
+        json.dumps(SNN_2018))
+    (tmp_path / "amcbench" / "traffic" / "light2018.json").write_text(json.dumps(
+        {"loop": "open", "arrivals": "poisson", "rate_fps": 20, "pool_frames": 48,
+         "snr_db": [-20, 32, 2], "warm_s": 0.5, "frames": "radioml2018.01a"}))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps({
+        "configs": [{"name": "snn-2018-small",
+                     "file": "amcbench/configs/snn-2018-small.json"}],
+        "workloads": [{"name": "snn-2018-small.light2018", "config": "snn-2018-small",
+                       "traffic": "light2018", "chips": 1}],
+        "end_to_end": [{"name": "latency_p50_ms", "unit": "ms"},
+                       {"name": "setup_s", "unit": "s"}],
+        "per_layer": [{"name": "batch_fill.latency", "unit": "frac",
+                       "moves": "latency_p50_ms"}]}))
+    return tmp_path
+
+
+def test_a_config_with_its_own_frames_added_as_files(tmp_path):
+    root = root_with_new_files(tmp_path)
+    runs = {name: run_cell(root, "snn-2018-small.light2018", 2**31 + 101, 1.5,
+                           False, time.perf_counter(), "cpu", override=override)
+            for name, override in (("served", None), ("altered", faults.altered))}
+    assert runs["served"]["run"].pool.shape == (48, 2, 1024)
+    assert runs["served"]["line"]["correct"] is True, runs["served"]["info"]["numbers"]
+    assert set(runs["served"]["line"]["metrics"]) == {"latency_p50_ms", "setup_s"}
+    assert runs["altered"]["line"]["correct"] is False, runs["altered"]["info"]["numbers"]
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))

@@ -8,6 +8,7 @@ import types
 import numpy as np
 import pytest
 
+from amcbench.harness import flush_lateness
 from amcbench.metrics import (flush_late_ms, queue_wait_ms, resolve_ms,
                               step_host_ms, step_sync_ms)
 from repro_torch.obs import trace
@@ -25,11 +26,12 @@ def _span(log, name, sid, parent, t0, t1):
     c["t0"][i], c["t1"][i] = t0, t1
 
 
-def _batch(log, batch, kind, late_s, t0, waits):
+def _batch(log, batch, kind, late_s, t0, waits, hold_s=math.nan):
     c = log.batches.cols
     i = log.batches.reserve()
     c["batch"][i], c["n_real"][i], c["bucket"][i] = batch, len(waits), 16
     c["kind"][i], c["late_s"][i], c["t0"][i] = FLUSH_KINDS.index(kind), late_s, t0
+    c["hold_s"][i] = hold_s
     idx = log.waits.reserve_many(len(waits))
     log.waits.cols["batch"][idx] = batch
     log.waits.cols["wait_s"][idx] = waits
@@ -106,3 +108,22 @@ def test_nothing_from_a_window_the_ring_dropped(log, reader):
 def test_nothing_without_a_span_log(monkeypatch, reader):
     monkeypatch.setattr(trace, "_SPANS", None)
     assert reader.read(_run(), "x.latency") is None
+
+
+def test_flush_lateness_past_each_batch_own_hold(log):
+    """The run's ``flush_late_ms`` info line: the timeout flushes' lateness
+    past their own (short) hold, never less the 5 ms ``max_delay``."""
+    _step(log, 1, 100.1, 5e-4)
+    _batch(log, 1, "timeout", 4e-4, 100.1, [2e-3], hold_s=1e-3)
+    _batch(log, 2, "size", math.nan, 100.2, [1e-3], hold_s=1e-3)
+    _batch(log, 3, "timeout", 6e-4, 100.3, [2e-3], hold_s=2e-3)
+    late = flush_lateness(_run())
+    assert late["batches"] == 2 and late["p50"] == pytest.approx(0.5)
+    assert late["hold_p50"] == pytest.approx(1.5)
+    assert flush_lateness(_run(102.0, 103.0)) is None            # no record there
+    assert flush_lateness(types.SimpleNamespace(sub0=None)) is None  # untraced run
+
+
+def test_no_flush_lateness_without_a_span_log(monkeypatch):
+    monkeypatch.setattr(trace, "_SPANS", None)
+    assert flush_lateness(_run()) is None

@@ -74,10 +74,57 @@ def test_cell_resolves(cell):
             assert m.moves in names
 
 
+PAPER = "https://arxiv.org/abs/2601.02613"
+
+
 def test_configs_state_their_model():
     for c in BENCH["configs"]:
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["reduced"] == c["reduced"] == []
-        assert cfg["model"]["conv_specs"] == [[11, 2, 16], [11, 16, 32], [5, 32, 64]]
-        assert cfg["model"]["fc_specs"] == [[1024, 128], [128, 11]]
+        assert cfg["reduced"] == c["reduced"]
+        model = cfg["model"]
+        if c["source"].startswith(PAPER):
+            assert cfg["reduced"] == []
+            assert model["conv_specs"] == [[11, 2, 16], [11, 16, 32], [5, 32, 64]]
+            assert model["fc_specs"] == [[1024, 128], [128, 11]]
+        # any stack: convs chained from the two I/Q channels, the first FC
+        # fed by the last conv's pooled output, the last FC the classes
+        convs, fcs = model["conv_specs"], model["fc_specs"]
+        assert [ic for _, ic, _ in convs] == [2] + [oc for _, _, oc in convs[:-1]]
+        width = model["input_width"] // model["pool"] ** len(convs)
+        assert fcs[0][0] == convs[-1][2] * width
+        assert [i for i, _ in fcs[1:]] == [o for _, o in fcs[:-1]]
+        assert fcs[-1][1] == model["n_classes"]
+        assert set(cfg["densities"]) == (
+            {f"conv{i + 1}" for i in range(len(convs))}
+            | {f"fc{i + 1}" for i in range(len(fcs))})
         assert cfg["limits"] and all(math.isfinite(v) for v in cfg["limits"].values())
+
+
+def _root(tmp_path, frames):
+    """A root holding only a BENCHMARK.json, a config and a traffic file."""
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "amcbench" / "traffic").mkdir(parents=True)
+    (tmp_path / "configs" / "c.json").write_text(
+        (ROOT / "amcbench" / "configs" / "snn-f32-fused.json").read_text())
+    traffic = {"loop": "open", "arrivals": "poisson", "rate_fps": 10,
+               "pool_frames": 24, "snr_db": [-20, 32, 2], "warm_s": 0.5}
+    if frames is not None:
+        traffic["frames"] = frames
+    (tmp_path / "amcbench" / "traffic" / "t.json").write_text(json.dumps(traffic))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps({
+        "configs": [{"name": "c", "file": "configs/c.json"}],
+        "workloads": [{"name": "c.t", "config": "c", "traffic": "t", "chips": 1}],
+        "end_to_end": [{"name": "setup_s", "unit": "s"}], "per_layer": []}))
+    return tmp_path
+
+
+@pytest.mark.parametrize("frames", [None, "radioml2016.10a", "radioml2018.01a"])
+def test_traffic_read_under_the_given_root(tmp_path, frames):
+    cell = spec.resolve(_root(tmp_path, frames), "c.t")
+    assert cell.traffic["pool_frames"] == 24
+    assert cell.traffic.get("frames") == frames
+
+
+def test_unknown_frame_set_refused(tmp_path):
+    with pytest.raises(ValueError, match="frame set 'radioml2099'"):
+        spec.resolve(_root(tmp_path, "radioml2099"), "c.t")
