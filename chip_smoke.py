@@ -14,7 +14,12 @@ file; exits non-zero without them.  In order, it
    the shapes the served paper model gives it (``SNNConfig()``, masks at
    density 0.5, batch 64): logits and currents within 1e-5, spikes and
    counters exactly; the whole-network kernel's logits bit for bit, at
-   batch 64 in both input modes and at batch 1.  The per-layer kernels are checked on every call the
+   batch 64 in both input modes and at batch 1, with the planner's f32
+   layout and with the bit layout forced.  The same on the O'Shea-2018
+   SNN at its published widths (``OSHEA``: 2 x 1,024 samples, seven
+   convs of 64 channels, FC 512-128-128-24, 24 classes; masks at density
+   0.2), which the planner holds in the bit layout: batch 64 and 1, both
+   input modes.  The per-layer kernels are checked on every call the
    plan's layer-by-layer path makes, on the operands that path gives them,
    and the conv and FC kernels must also equal an in-order eager version
    of their arithmetic bit for bit;
@@ -28,11 +33,17 @@ file; exits non-zero without them.  In order, it
    each per-layer kernel and not the whole-network one.  The engine's
    predictions must equal the plain-torch ``goap`` backend's on the
    card; the layer-by-layer logits must equal the fused kernel's exactly
-   and give the ``goap`` backend's predictions;
+   and give the ``goap`` backend's predictions.  Then the O'Shea-2018
+   SNN is served the same way (launch counts set to 0 just before it):
+   256 requests, the whole-network kernel alone by replay alone, each
+   captured bucket's launch noted in the bit layout, predictions equal
+   to the layered ``cuda`` path's;
 6. times each kernel's device time (``ms``) and that of the one PyTorch
    call that computes the same function (``library_ms``) the same way (the
    whole-network kernel also at batch 1, ``ms_batch1``, each beside the
-   thread-block-cluster launch the planner chose, ``plan``): 20
+   thread-block-cluster launch the planner chose, ``plan``; on the paper
+   model also the bit layout's, ``ms_bits``, ``ms_bits_batch1`` and
+   ``plan_bits``; its O'Shea-2018 row names ``model``): 20
    back-to-back calls captured into one CUDA graph, replayed 10 times
    between two CUDA events, the median replay divided by 20; beside them
    a single
@@ -257,6 +268,12 @@ BATCH = 64
 REQUESTS = 256
 SEED = 0
 DENSITY = 0.5
+# the O'Shea-2018 SNN (arXiv:1712.04578, Table III) at its published
+# widths, and its masks' density
+OSHEA = dict(conv_specs=((3, 2, 64),) + ((3, 64, 64),) * 6, pool=2,
+             fc_specs=((512, 128), (128, 128), (128, 24)), input_width=1024,
+             timesteps=8, n_classes=24)
+OSHEA_DENSITY = 0.2
 ATOL = 1e-5
 # the train phase: steps in all, the step of the resume checkpoint, and its
 # gates on one step, card against CPU
@@ -347,41 +364,43 @@ class Timers(typing.NamedTuple):
     host: typing.Callable      # host to host, ending in a synchronise
 
 
-def check_kernels(plan, iq, frames_b, timers):
-    """Phase 4 and 6: each kernel against its plain version, then timed.
+def check_fused(chk, stack, x, encode: bool, plan=None, work=None) -> None:
+    """The whole-network kernel on ``x`` (with ``plan``, default the
+    planner's) against its plain version: logits and counters bit for bit."""
+    import torch
 
-    ``ms`` and ``library_ms`` are device times by CUDA-graph replay;
-    ``call_ms`` and ``plain_ms`` are single calls between CUDA events,
-    host work included (the plain versions are host-driven loops).
-    Returns per-kernel rows (without launch counts)."""
+    from repro_torch.kernels import stream_fused_forward, stream_fused_forward_ref
+
+    got_l, got_a = stream_fused_forward(stack, x, encode=encode, plan=plan)
+    want_l, want_a = stream_fused_forward_ref(stack, x, encode=encode, work=work)
+    torch.cuda.synchronize()
+    what = (f"encode={encode} batch {x.shape[0]}"
+            + ("" if plan is None else f" {plan.spikes} layout"))
+    chk.close(got_l, want_l, ATOL, f"logits {what}")
+    chk.close(got_a, want_a, 0.0, f"conv_accs {what}")
+    n_same = int((got_l == want_l).all(-1).sum())
+    print(f"  {chk.name} {what}: {n_same}/{x.shape[0]} "
+          "samples with bit-equal logits")
+    if n_same != x.shape[0]:
+        raise AssertionError(f"{chk.name} {what}: logits not "
+                             "bit-equal to the plain version")
+
+
+def fused_row(stack, iq, frames_b, timers, model: str) -> dict:
+    """Phase 4 and 6 for the whole-network kernel on ``stack``: both input
+    modes at the served batch and at batch 1 (the lone-request bucket),
+    each with the planner's launch, then timed, with its bound."""
     import torch
 
     from repro_torch.core.encoder import normalize_iq
     from repro_torch.kernels import stream_fused_forward, stream_fused_forward_ref
 
-    stack = plan.fused_stack()
     analog = normalize_iq(iq)
-    rows = []
-
-    # -- stream_fused_forward, both input modes, at the served batch and at
-    #    batch 1 (the lone-request bucket), each with the planner's launch --
-    chk = Check("stream_fused_forward")
+    chk = Check("stream_fused_forward" + ("" if model == "paper" else f" ({model})"))
     work = {}
-    for encode, x in ((False, frames_b), (True, analog), (False, frames_b[:1])):
-        got_l, got_a = stream_fused_forward(stack, x, encode=encode)
-        want_l, want_a = stream_fused_forward_ref(
-            stack, x, encode=encode,
-            work=work if x is frames_b and not encode else None)
-        torch.cuda.synchronize()
-        what = f"encode={encode} batch {x.shape[0]}"
-        chk.close(got_l, want_l, ATOL, f"logits {what}")
-        chk.close(got_a, want_a, 0.0, f"conv_accs {what}")
-        n_same = int((got_l == want_l).all(-1).sum())
-        print(f"  stream_fused_forward {what}: {n_same}/{x.shape[0]} "
-              "samples with bit-equal logits")
-        if n_same != x.shape[0]:
-            raise AssertionError(f"stream_fused_forward {what}: logits not "
-                                 "bit-equal to the plain version")
+    check_fused(chk, stack, frames_b, False, work=work)
+    for encode, x in ((True, analog), (False, frames_b[:1]), (True, analog[:1])):
+        check_fused(chk, stack, x, encode)
     operands = [frames_b]
     for layer in stack.layers:
         for f in ("w_cm", "counts", "lif", "w"):
@@ -391,8 +410,8 @@ def check_kernels(plan, iq, frames_b, timers):
     n_ops = work["conv_adds"] + work["fc_adds"] + 4 * work["lif_updates"]
     b_ms, b_by = bound_ms(n_b, n_ops)
     one = frames_b[:1]
-    rows.append(dict(
-        name="stream_fused_forward", route="cuda",
+    return dict(
+        name="stream_fused_forward", model=model, route="cuda",
         source="src/repro_torch/csrc/stream_fused.cu",
         replaces="src/repro/kernels/stream_fused.py:210",
         max_abs_err=chk.max_abs_err,
@@ -402,7 +421,77 @@ def check_kernels(plan, iq, frames_b, timers):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         plan=fused_plan(stack, frames_b),
         ms_batch1=timers.graph(lambda: stream_fused_forward(stack, one)),
-        plan_batch1=fused_plan(stack, one)))
+        plan_batch1=fused_plan(stack, one))
+
+
+def bits_plan(stack, batch: int, device):
+    """The planner's launch for ``batch`` with the bit layout forced, the
+    card's occupancy asked as :func:`launch_plan` asks it."""
+    from repro_torch.kernels import stream_fused as sf
+
+    on_card = device.type == "cuda"
+    return sf.plan_stream_fused_launch(
+        stack, batch, n_sms=sf._n_sms(device) if on_card else sf.N_SMS,
+        active_clusters=sf._active_clusters if on_card else None,
+        spikes="bits")
+
+
+def oshea_model(device, seed: int = SEED) -> dict:
+    """The O'Shea-2018 SNN at its published widths: config, params,
+    masks, its ``cuda_fused`` plan, REQUESTS seeded I/Q frames and the
+    first BATCH of them on the card and Σ-Δ-encoded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import (SNNConfig, compile_plan, compile_snn, init_snn,
+                                 make_mask_pytree)
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+
+    cfg = SNNConfig(**OSHEA).validate()
+    params = init_snn(seed, cfg)
+    masks = make_mask_pytree(params, OSHEA_DENSITY)
+    iq = np.random.default_rng(seed + 1).normal(
+        size=(REQUESTS, cfg.conv_specs[0][1], cfg.input_width)).astype(np.float32)
+    iq_dev = torch.as_tensor(iq[:BATCH], device=device)
+    return dict(cfg=cfg, params=params, masks=masks, iq=iq, iq_dev=iq_dev,
+                frames_b=sigma_delta_encode_batch(iq_dev, cfg.timesteps),
+                plan=compile_plan(compile_snn(cfg), params, masks=masks,
+                                  assignment="cuda_fused", device=device))
+
+
+def check_kernels(plan, iq, frames_b, timers, oshea):
+    """Phase 4 and 6: each kernel against its plain version, then timed;
+    the whole-network kernel on the paper model (in both layouts) and on
+    ``oshea`` (:func:`oshea_model`).
+
+    ``ms`` and ``library_ms`` are device times by CUDA-graph replay;
+    ``call_ms`` and ``plain_ms`` are single calls between CUDA events,
+    host work included (the plain versions are host-driven loops).
+    Returns per-kernel rows (without launch counts)."""
+    from repro_torch.kernels import stream_fused_forward
+
+    stack = plan.fused_stack()
+    rows = [fused_row(stack, iq, frames_b, timers, "paper")]
+    # the bit layout on the paper model, which the planner keeps in f32
+    chk = Check("stream_fused_forward")
+    one = frames_b[:1]
+    bits = {x.shape[0]: bits_plan(stack, x.shape[0], x.device)
+            for x in (frames_b, one)}
+    for x in (frames_b, one):
+        check_fused(chk, stack, x, False, plan=bits[x.shape[0]])
+    b64, b1 = bits[frames_b.shape[0]], bits[1]
+    rows[0].update(
+        ms_bits=timers.graph(lambda: stream_fused_forward(stack, frames_b,
+                                                          plan=b64)),
+        ms_bits_batch1=timers.graph(lambda: stream_fused_forward(stack, one,
+                                                                 plan=b1)),
+        plan_bits=fused_plan(stack, frames_b, b64))
+    o_stack = oshea["plan"].fused_stack()
+    rows.append(fused_row(o_stack, oshea["iq_dev"], oshea["frames_b"], timers,
+                          "oshea2018"))
+    if rows[-1]["plan"]["spikes"] != "bits":
+        raise AssertionError("the planner did not hold the O'Shea-2018 SNN "
+                             "in the bit layout")
 
     # -- the per-layer kernels, on the plan's layer-by-layer path ----------
     checks, calls = check_per_layer(plan, frames_b)
@@ -451,13 +540,14 @@ LIF_BOUND_NOTE = ("ms sums a batch's launches (per_launch_ms); bound: the "
                   "given; none on the layered path)")
 
 
-def fused_plan(stack, frames):
-    """The launch the planner gives the whole-network kernel for this batch,
-    and how many such clusters the card holds at once."""
+def fused_plan(stack, frames, plan=None):
+    """The launch the planner gives the whole-network kernel for this batch
+    (or ``plan``), and how many such clusters the card holds at once."""
     from repro_torch.kernels.stream_fused import launch_plan, max_active_clusters
 
-    plan = launch_plan(stack, frames.shape[0], frames.device)
-    return dict(cluster=plan.cluster, threads=plan.threads,
+    if plan is None:
+        plan = launch_plan(stack, frames.shape[0], frames.device)
+    return dict(spikes=plan.spikes, cluster=plan.cluster, threads=plan.threads,
                 smem_bytes=plan.smem_bytes, fc_resident=plan.fc_resident,
                 fc_rows=plan.fc_rows, waves=plan.waves,
                 active_clusters=(max_active_clusters(plan)
@@ -625,6 +715,65 @@ def run_main_path(params, masks, cfg, iq, frames_b, device):
                                            "layered": per_layer}
 
 
+def run_oshea_main_path(oshea, device) -> dict:
+    """Phase 5 on the O'Shea-2018 SNN, with the launch counts set to 0 just
+    before it and read just after: the engine serves its REQUESTS frames
+    by graph replay of the whole-network kernel alone, each captured
+    bucket's launch noted in the bit layout, with the layered ``cuda``
+    path's predictions.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import AsyncAMCServeEngine, compile_plan, compile_snn
+    from repro_torch.data.pipeline import sigma_delta_encode_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import step_launches
+
+    cfg, iq = oshea["cfg"], oshea["iq"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with AsyncAMCServeEngine(oshea["params"], cfg, oshea["masks"],
+                             backend="cuda_fused", max_batch=BATCH,
+                             device=device) as engine:
+        futures = [engine.submit(frame) for frame in iq]
+        preds = np.array([f.result(timeout=600) for f in futures])
+        ver = engine.get_version(engine.active_version)
+        graphs = ver.graphs
+        captured = len(graphs.shapes()) if graphs is not None else 0
+        replays = graphs.replays if graphs is not None else 0
+        noted = ({s[0]: step_launches(ver, s) for s in graphs.shapes()}
+                 if graphs is not None else {})
+    torch.cuda.synchronize()
+    served = launch_counts()
+    print(f"O'Shea-2018 path, served: {len(preds)} requests in "
+          f"{time.perf_counter() - t0:.3f} s; launches {served}; "
+          f"{captured} graphs captured, {replays} replays; noted "
+          + json.dumps({b: [(ln.spikes, ln.cluster, ln.waves) for ln in n]
+                        for b, n in sorted(noted.items())}))
+    expect_launches(served, {"stream_fused_forward"}, "O'Shea-2018 served path")
+    if graphs is None or served["stream_fused_forward"] != captured + replays:
+        raise AssertionError("the served O'Shea-2018 step did not run by "
+                             "graph replay alone")
+    if not noted or any(len(n) != 1 or n[0].spikes != "bits"
+                        for n in noted.values()):
+        raise AssertionError("a captured O'Shea-2018 bucket did not note "
+                             "one bit-layout launch")
+    layered = compile_plan(compile_snn(cfg), oshea["params"], masks=oshea["masks"],
+                           assignment="cuda", device=device)
+    want = np.concatenate([
+        layered.bound.batch(sigma_delta_encode_batch(
+            torch.as_tensor(chunk, device=device), cfg.timesteps)
+        ).argmax(-1).cpu().numpy()
+        for chunk in np.split(iq, REQUESTS // BATCH)])
+    n_diff = int((preds != want).sum())
+    print(f"  O'Shea-2018 engine predictions vs the layered cuda path: "
+          f"{n_diff} of {len(preds)} differ")
+    if n_diff:
+        raise AssertionError(f"{n_diff} served O'Shea-2018 predictions differ "
+                             "from the layered cuda path")
+    return served
+
+
 def run(device, timers: Timers, seed: int = SEED,
         parent: typing.Optional[pathlib.Path] = None):
     """Phases 3-23 on ``device`` (``parent``: an earlier tree the operands
@@ -661,12 +810,14 @@ def run(device, timers: Timers, seed: int = SEED,
     iq_dev = torch.as_tensor(iq_b, device=device)
     frames_b = sigma_delta_encode_batch(iq_dev, cfg.timesteps)   # (B,T,C,W)
 
+    oshea = oshea_model(device, seed)
     print("phase: kernels against their plain versions")
-    rows = check_kernels(plan, iq_dev, frames_b, timers)
+    rows = check_kernels(plan, iq_dev, frames_b, timers, oshea)
 
     print("phase: main path")
     preds, stats, engine, layered, launches = run_main_path(
         params, masks, cfg, iq, frames_b, device)
+    launches["oshea"] = run_oshea_main_path(oshea, device)
     goap_plan = compile_plan(program, params, masks=masks, assignment="goap",
                              device=device)
     goap_logits = [goap_plan.bound.batch(torch.as_tensor(chunk, device=device))
@@ -711,14 +862,15 @@ def run(device, timers: Timers, seed: int = SEED,
         "kernels_share": kernels_ms / layered_ms}))
     for row in rows:
         # each kernel's count from the path that launches it, and both paths'
-        path = "served" if row["name"] == "stream_fused_forward" else "layered"
+        path = ("oshea" if row.get("model") == "oshea2018" else
+                "served" if row["name"] == "stream_fused_forward" else "layered")
         row["launches"] = launches[path][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]] for p, c in launches.items()}
-    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "inorder_max_abs_err", "ms", "per_launch_ms",
-            "launch_floor_ms", "call_ms", "plain_ms",
+    keys = ("name", "model", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "inorder_max_abs_err", "ms",
+            "per_launch_ms", "launch_floor_ms", "call_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "plan", "ms_batch1",
-            "plan_batch1", "note")
+            "plan_batch1", "ms_bits", "ms_bits_batch1", "plan_bits", "note")
     result = {"kernels": [{k: row.get(k) for k in keys} for row in rows]}
 
     print("phase: bf16")
@@ -774,7 +926,7 @@ def run(device, timers: Timers, seed: int = SEED,
     paths["zoo"] = run_zoo_phase(device, seed)["launches"]
     print("phase: cells")
     fused_ms = next(row["ms"] for row in rows
-                    if row["name"] == "stream_fused_forward")
+                    if row.get("model") == "paper")
     paths["cells"] = run_cells_phase(device, fused_ms, seed)["launches"]
     for row in result["kernels"]:
         for path, counts in paths.items():
@@ -3642,7 +3794,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     result = run(device, Timers(call_ms, graph_ms, host_timer), parent=parent)
     for row in result["kernels"]:
-        print(f"  {row['name']}: {row['ms']:.4f} ms (one call "
+        model = f" ({row['model']})" if row.get("model") else ""
+        print(f"  {row['name']}{model}: {row['ms']:.4f} ms (one call "
               f"{row['call_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
               f"{row['bound_ms']:.6f} by {row['bound_by']}, library "
               f"{row['library_ms']}), launches {row['launches']}")

@@ -66,6 +66,23 @@
 // sample's chain of dependent steps: 8 timesteps x 5 layers, each waiting
 // for the exchange of the layer before, with the FC sums and the conv
 // walks of a CTA's share of the channels on the way (PERF.md).
+//
+// Spike layouts (the template parameter BITS; kernels/stream_fused.py's
+// planner picks one).  BITS = false holds every conv input, the frames and
+// the pre-pool spikes as f32 words, one a position.  BITS = true, for a
+// network whose f32 layout fits in no cluster size, holds them as bits, 32
+// positions a word: an input row is a zero word (its left padding and the
+// row before's right padding) and then its positions, bit p % 32 of word
+// 1 + p / 32, with the weight lists' offsets in bits.  A conv lane tests
+// the bit of each list entry and adds the weight where it is set, which is
+// the f32 walk's FFMA on a {0, 1} input bit for bit (see Exactness).  A
+// warp's spikes become words by ballot, into the pre-pool scratch; after a
+// barrier each pooled word (or, before an FC, each pooled position as an
+// f32 word) is written to every CTA as the f32 layout writes a position.
+// The frames are packed into bits at the prologue, with a flag a timestep
+// for a frame that is not all {0, 1}; such a frame's first conv and its
+// counter read the f32 frame from global memory.  The membranes, the FC
+// inputs and weights stay f32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -83,7 +100,7 @@ enum { H_NOPS, H_T, H_IC, H_W, H_NCLS, H_NCONV, H_C, H_NIN, H_READOUT, H_SPK,
 enum { C_KIND, C_KW, C_IC, C_OC, C_W, C_POOL, C_PER, C_P, C_SIN, C_SNEXT, C_NKW,
        C_SHFL, C_SLIST, C_GLIST, C_NLIST, C_SRP, C_GRP, C_NRP, C_SCMAP, C_GCMAP,
        C_NCMAP, C_SLIF, C_GLIF, C_NLIF, C_SV, C_GCNT, C_GW, C_CIDX,
-       C_MB, C_EXPB, C_INSZ, C_NMB, C_NSZ };
+       C_MB, C_EXPB, C_INSZ, C_NMB, C_NSZ, C_XW, C_NXW };
 enum { F_KIND, F_DIN, F_DOUT, F_PER, F_DPAD, F_SIN, F_SNEXT, F_RROWS, F_SW, F_GW,
        F_SLIF, F_GLIF, F_NLIF, F_SV, F_LAST, F_MB, F_EXPB, F_INSZ, F_NMB, F_NSZ,
        F_SROWS, F_SSTG };
@@ -357,6 +374,147 @@ __device__ __noinline__ float fc_walk_global(const float* wcol, unsigned iaddr,
     return acc;
 }
 
+// ---- the bit layout's helpers ---------------------------------------------
+
+// List entries k .. k+3 of a bit-layout conv walk: weights and bit offsets.
+__device__ __forceinline__ Entries load_bit_entries(unsigned laddr, int k) {
+    const float4 a = lds128(laddr + 8u * k);
+    const float4 b = lds128(laddr + 8u * k + 16u);
+    return {{a.x, a.z, b.x, b.z},
+            {__float_as_uint(a.y), __float_as_uint(a.w),
+             __float_as_uint(b.y), __float_as_uint(b.w)}};
+}
+
+template <int OFF>
+__device__ __forceinline__ unsigned lds32u_at(unsigned addr) {
+    unsigned v;
+    asm volatile("ld.shared.u32 %0, [%1+%2];\n" : "=r"(v) : "r"(addr), "n"(OFF));
+    return v;
+}
+
+// The input words of one list entry for a lane's P positions, 32 apart
+// (one word apart): a is the byte address of the first.
+template <int P>
+__device__ __forceinline__ void load_xw(unsigned a, unsigned* x) {
+    x[0] = lds32u_at<0>(a);
+    if (P > 1) x[1] = lds32u_at<4>(a);
+    if (P > 2) x[2] = lds32u_at<8>(a);
+    if (P > 3) x[3] = lds32u_at<12>(a);
+}
+
+// conv_walk over a bit-layout input (xaddr its byte address): entry
+// (w, off) adds w to chain j where bit off + pos0 + 32j is set.  A set bit
+// is x = 1, where fmaf(w, x, acc) is acc + w rounded once; a clear bit
+// adds +-0, which changes no accumulator (see Exactness).  Pipelined as
+// conv_walk is.
+template <int P>
+__device__ __forceinline__ void conv_walk_bits(unsigned laddr, int s, int e,
+                                               unsigned xaddr, unsigned pos0,
+                                               float* acc) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) acc[j] = 0.0f;
+    Entries a = load_bit_entries(laddr, s);
+    Entries b = load_bit_entries(laddr, s + 4);
+    unsigned xa[4][P], sa[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+        const unsigned bit = a.off[m] + pos0;
+        sa[m] = bit & 31u;
+        load_xw<P>(xaddr + 4u * (bit >> 5), xa[m]);
+    }
+#pragma unroll 2
+    for (int k = s; k < e; k += 4) {
+        const Entries c = load_bit_entries(laddr, k + 8);
+        unsigned xb[4][P], sb[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+            const unsigned bit = b.off[m] + pos0;
+            sb[m] = bit & 31u;
+            load_xw<P>(xaddr + 4u * (bit >> 5), xb[m]);
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+#pragma unroll
+            for (int j = 0; j < P; ++j)
+                if ((xa[m][j] >> sa[m]) & 1u) acc[j] = __fadd_rn(acc[j], a.w[m]);
+        a = b;
+        b = c;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+            sa[m] = sb[m];
+#pragma unroll
+            for (int j = 0; j < P; ++j) xa[m][j] = xb[m][j];
+        }
+    }
+}
+
+// A value of a conv's zero-padded input row at padded column c, from an
+// unpadded f32 frame in global memory (a frame that is not all {0, 1}).
+__device__ __forceinline__ float frame_at(const float* g, int w, int left, int row, int c) {
+    const int col = c - left;
+    return col >= 0 && col < w ? g[row * w + col] : 0.0f;
+}
+
+// conv_dense over such a frame: the same sum, in the same order.
+__device__ __noinline__ float conv_dense_frame(const float* wrow, const float* g,
+                                               int kw, int ic, int w, int left, int p) {
+    float a = 0.0f;
+#pragma unroll 1
+    for (int icc = 0; icc < ic; ++icc)
+#pragma unroll 1
+        for (int ci = 0; ci < kw; ++ci) {
+            const float xv = frame_at(g, w, left, icc, ci + p);
+            if (xv != 0.0f) a = __fadd_rn(a, __fmul_rn(wrow[ci * ic + icc], xv));
+        }
+    return a;
+}
+
+// Whether any of the n bits of row from bit lo is set.
+__device__ __forceinline__ bool any_bit(const unsigned* row, int lo, int n) {
+    for (; n > 0; lo += 32, n -= 32) {
+        const int m = min(n, 32), sh = lo & 31;
+        unsigned long long v = row[lo >> 5] >> sh;
+        if (sh + m > 32) v |= static_cast<unsigned long long>(row[(lo >> 5) + 1]) << (32 - sh);
+        if (v & ((1ull << m) - 1ull)) return true;
+    }
+    return false;
+}
+
+// The even bits of x, packed into its low 16.
+__device__ __forceinline__ unsigned even_bits(unsigned x) {
+    x &= 0x55555555u;
+    x = (x | (x >> 1)) & 0x33333333u;
+    x = (x | (x >> 2)) & 0x0F0F0F0Fu;
+    x = (x | (x >> 4)) & 0x00FF00FFu;
+    return (x | (x >> 8)) & 0x0000FFFFu;
+}
+
+// Word k of a row's max-pool by `pool` (pooled positions 32k .. 32k+31,
+// those from w2 on clear) from its pre-pool bits (`words` words a row,
+// those past the width clear): for a power-of-two pool
+// of at most 32, each of the pool's words halved pool-fold by pairs.
+__device__ __forceinline__ unsigned pool_word(const unsigned* row, int words, int k,
+                                              int pool, int w2) {
+    unsigned out = 0u;
+    if (pool <= 32 && (pool & (pool - 1)) == 0) {
+        const int per = 32 / pool;   // pooled bits a word gives
+#pragma unroll 1
+        for (int u = 0; u < pool && k * pool + u < words; ++u) {
+            unsigned x = row[k * pool + u];
+#pragma unroll 1
+            for (int d = 1; d < pool; d <<= 1) x = even_bits(x | (x >> 1));
+            out |= per == 32 ? x : x << (u * per);
+        }
+    } else {
+#pragma unroll 1
+        for (int i = 0; i < 32; ++i)
+            if (32 * k + i < w2 && any_bit(row, (32 * k + i) * pool, pool)) out |= 1u << i;
+    }
+    const int left = w2 - 32 * k;
+    return left >= 32 ? out : out & ((1u << left) - 1u);
+}
+
+template <bool BITS>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 stream_fused_kernel(const int* __restrict__ gmeta,
                     const float* __restrict__ fp,
@@ -397,6 +555,10 @@ stream_fused_kernel(const int* __restrict__ gmeta,
     // ones a compare-and-swap loop; folded into accs once a timestep
     int* cnt32 = reinterpret_cast<int*>(accs + n_conv);
     float* frm = sm + meta[H_FRM];
+    // the bit layout's frames: T x IC rows of wb words, then the flags
+    const int wb = (in_w + 31) / 32;
+    unsigned* frm_bits = reinterpret_cast<unsigned*>(frm);
+    unsigned* frm_flags = frm_bits + T * in_ic * wb;
     float* integ = sm + meta[H_INTEG];
     float* yprev = sm + meta[H_YPREV];
     const int* first = meta + HDR;
@@ -408,7 +570,21 @@ stream_fused_kernel(const int* __restrict__ gmeta,
     //      second layer) and the resident FC weight rows (group 2, awaited
     //      at the first FC); every input buffer, membrane and accumulator
     //      zeroed --------------------------------------------------------
-    {
+    if (BITS && !encode) {   // the frames as bits, and which are not all {0, 1}
+        if (tid == 0) *frm_flags = 0u;
+        __syncthreads();
+        const float* src = frames + static_cast<size_t>(b) * T * n_in;
+        for (int i = warp; i < T * in_ic * wb; i += nwarps) {
+            const int row = i / wb, col = 32 * (i - row * wb) + lane;
+            const float v = col < in_w ? src[row * in_w + col] : 0.0f;
+            const unsigned word = __ballot_sync(0xffffffffu, v != 0.0f);
+            const unsigned odd = __ballot_sync(0xffffffffu, !repro::is_binary(v));
+            if (lane == 0) {
+                frm_bits[i] = word;
+                if (odd) atomicOr(frm_flags, 1u << (row / in_ic));
+            }
+        }
+    } else {
         const int n = encode ? n_in : T * n_in;
         const float* src = frames + static_cast<size_t>(b) * n;
         if (n % 4 == 0) {
@@ -427,9 +603,16 @@ stream_fused_kernel(const int* __restrict__ gmeta,
             copy_slice(sm + op[C_SCMAP], ip + op[C_GCMAP] + q * op[C_NCMAP], op[C_NCMAP]);
             copy_slice(sm + op[C_SLIF], fp + op[C_GLIF] + q * op[C_NLIF], op[C_NLIF]);
             const int w = op[C_W], kw = op[C_KW];
-            for (int i = tid; i < op[C_IC] * (w + kw - 1); i += blockDim.x) {
-                sm[op[C_SIN] + i] = 0.0f;              // the zero padding
-                sm[op[C_SIN] + op[C_INSZ] + i] = 0.0f;
+            if (BITS) {   // every word of both copies: padding and slack
+                for (int i = tid; i < op[C_IC] * op[C_XW] + 8; i += blockDim.x) {
+                    sm[op[C_SIN] + i] = 0.0f;
+                    sm[op[C_SIN] + op[C_INSZ] + i] = 0.0f;
+                }
+            } else {
+                for (int i = tid; i < op[C_IC] * (w + kw - 1); i += blockDim.x) {
+                    sm[op[C_SIN] + i] = 0.0f;              // the zero padding
+                    sm[op[C_SIN] + op[C_INSZ] + i] = 0.0f;
+                }
             }
             for (int i = tid; i < op[C_PER] * w; i += blockDim.x) sm[op[C_SV] + i] = 0.0f;
         } else {
@@ -474,7 +657,32 @@ stream_fused_kernel(const int* __restrict__ gmeta,
         const int par = t & 1;
         // ---- this timestep's frame into the first layer's input buffer ---
         int nonbinary = 0;
-        {
+        if (BITS) {   // the first layer is a conv (the planner's rule)
+            const int xw = first[C_XW];
+            unsigned* x0 = reinterpret_cast<unsigned*>(sm + first[C_SIN]);
+            if (encode) {
+                for (int i = warp; i < in_ic * wb; i += nwarps) {
+                    const int row = i / wb, col = 32 * (i - row * wb) + lane;
+                    float v = 0.0f;
+                    if (col < in_w) {   // first-order Σ-Δ, as below
+                        const int j = row * in_w + col;
+                        const float u = __fsub_rn(__fadd_rn(integ[j], frm[j]), yprev[j]);
+                        v = u >= 0.5f ? 1.0f : 0.0f;
+                        integ[j] = u;
+                        yprev[j] = v;
+                    }
+                    const unsigned word = __ballot_sync(0xffffffffu, v != 0.0f);
+                    if (lane == 0) x0[row * xw + 1 + (i - row * wb)] = word;
+                }
+            } else {
+                const unsigned* src = frm_bits + t * in_ic * wb;
+                for (int i = tid; i < in_ic * wb; i += blockDim.x) {
+                    const int row = i / wb;
+                    x0[row * xw + 1 + (i - row * wb)] = src[i];
+                }
+                nonbinary = (*frm_flags >> t) & 1u;
+            }
+        } else {
             const bool conv0 = first[C_KIND] == OP_CONV;
             const int wp = conv0 ? in_w + first[C_KW] - 1 : in_w;
             const int left = conv0 ? (first[C_KW] - 1) / 2 : 0;
@@ -529,21 +737,36 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                 const int* rp = reinterpret_cast<const int*>(sm + op[C_SRP]);
                 const float* lif = sm + op[C_SLIF];
                 float* v = sm + op[C_SV];
+                // the bit layout: this input's f32 frame (for a frame not
+                // all {0, 1}) and the words of a pre-pool row
+                const float* frame = frames + (static_cast<size_t>(b) * T + t) * n_in;
+                const int words = (w + 31) / 32;
+                unsigned* spk_bits = reinterpret_cast<unsigned*>(spk);
                 for (int tk = warp; tk < n_own * groups; tk += nwarps) {
                     const int cl = tk / groups, ch = ch0 + cl;
                     const int pos0 = (tk - cl * groups) * 32 * P + lane;
                     float acc[4];
                     if (binary) {
-                        const unsigned xb = xaddr + 4u * pos0;
-                        if (P == 4) conv_walk<4>(laddr, rp[cl], rp[cl + 1], xb, acc);
-                        else if (P == 2) conv_walk<2>(laddr, rp[cl], rp[cl + 1], xb, acc);
-                        else conv_walk<1>(laddr, rp[cl], rp[cl + 1], xb, acc);
+                        if (BITS) {
+                            const unsigned p0 = static_cast<unsigned>(pos0);
+                            if (P == 4) conv_walk_bits<4>(laddr, rp[cl], rp[cl + 1], xaddr, p0, acc);
+                            else if (P == 2) conv_walk_bits<2>(laddr, rp[cl], rp[cl + 1], xaddr, p0, acc);
+                            else conv_walk_bits<1>(laddr, rp[cl], rp[cl + 1], xaddr, p0, acc);
+                        } else {
+                            const unsigned xb = xaddr + 4u * pos0;
+                            if (P == 4) conv_walk<4>(laddr, rp[cl], rp[cl + 1], xb, acc);
+                            else if (P == 2) conv_walk<2>(laddr, rp[cl], rp[cl + 1], xb, acc);
+                            else conv_walk<1>(laddr, rp[cl], rp[cl + 1], xb, acc);
+                        }
                     } else {
                         const float* wrow = fp + op[C_GW] + static_cast<size_t>(ch) * kw * ic;
 #pragma unroll
                         for (int j = 0; j < 4; ++j) {
                             const int p = pos0 + 32 * j;
-                            acc[j] = j < P && p < w ? conv_dense(wrow, x, kw, ic, wp, p) : 0.0f;
+                            if (BITS)   // only the first layer, at encode == 0
+                                acc[j] = j < P && p < w ? conv_dense_frame(wrow, frame, kw, ic, w, left, p) : 0.0f;
+                            else
+                                acc[j] = j < P && p < w ? conv_dense(wrow, x, kw, ic, wp, p) : 0.0f;
                         }
                     }
                     const float alpha = lif[cl], theta = lif[per + cl], vth = lif[2 * per + cl];
@@ -553,7 +776,11 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                         const int p = pos0 + 32 * j;
                         float s = 0.0f;
                         if (p < w) v[cl * w + p] = lif_fire(v[cl * w + p], acc[j], alpha, theta, vth, &s);
-                        if (shfl) {   // max over the pool's neighbouring lanes
+                        if (BITS) {   // the warp's 32 positions as a word
+                            const unsigned word = __ballot_sync(0xffffffffu, s != 0.0f);
+                            const int k = (pos0 - lane) / 32 + j;
+                            if (lane == 0 && k < words) spk_bits[cl * words + k] = word;
+                        } else if (shfl) {   // max over the pool's neighbouring lanes
                             for (int d = 1; d < pool; d <<= 1)
                                 s = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, d));
                             const int jp = p >> lg_pool;
@@ -564,7 +791,23 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                         }
                     }
                 }
-                if (!shfl) {
+                if (BITS) {   // pooled words to a conv, pooled positions to an FC
+                    __syncthreads();
+                    const int nxw = op[C_NXW], wn = (w2 + 31) / 32;
+                    if (nkw) {
+                        for (int e = tid; e < n_own * wn; e += blockDim.x) {
+                            const int cl = e / wn, k = e - cl * wn;
+                            const unsigned word = pool_word(spk_bits + cl * words, words, k, pool, w2);
+                            push(next + 4u * ((ch0 + cl) * nxw + 1 + k), next_mb, __uint_as_float(word), C);
+                        }
+                    } else {
+                        for (int e = tid; e < n_own * w2; e += blockDim.x) {
+                            const int cl = e / w2, j = e - cl * w2;
+                            const float m = any_bit(spk_bits + cl * words, j * pool, pool) ? 1.0f : 0.0f;
+                            push(next + 4u * ((ch0 + cl) * w2 + j), next_mb, m, C);
+                        }
+                    }
+                } else if (!shfl) {
                     __syncthreads();
                     for (int e = tid; e < n_own * w2; e += blockDim.x) {
                         const int cl = e / w2, j = e - cl * w2;
@@ -582,9 +825,13 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                     const int n = ic * w, share = (n + C - 1) / C;
                     const int lo = q * share, hi = min(n, lo + share);
                     const int* cmap = reinterpret_cast<const int*>(sm + op[C_SCMAP]);
+                    const unsigned* xw = reinterpret_cast<const unsigned*>(x);
+                    const int row_words = op[C_XW];
                     for (int e = lo + tid; e < hi; e += blockDim.x) {
                         const int row = e / w, p = e - row * w;
-                        if (x[row * wp + left + p] != 0.0f) local += cmap[e - lo];
+                        if (BITS ? (xw[row * row_words + 1 + (p >> 5)] >> (p & 31)) & 1u
+                                 : x[row * wp + left + p] != 0.0f)
+                            local += cmap[e - lo];
                     }
                 } else {   // rows r = q, q + C, ...: X' row sums in ascending position
                     const int* counts = ip + op[C_GCNT];
@@ -594,7 +841,9 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                         const int ci = r / ic, icc = r - ci * ic;
                         float s = 0.0f;
 #pragma unroll 1
-                        for (int p = 0; p < w; ++p) s = __fadd_rn(s, x[icc * wp + ci + p]);
+                        for (int p = 0; p < w; ++p)
+                            s = __fadd_rn(s, BITS ? frame_at(frame, w, left, icc, ci + p)
+                                                  : x[icc * wp + ci + p]);
                         local += static_cast<long long>(k) * __float2ll_rz(s);
                     }
                 }
@@ -609,8 +858,9 @@ stream_fused_kernel(const int* __restrict__ gmeta,
                 }
                 // Nothing of this layer's is read by the next one but its
                 // exchanged input: only the spike buffer of a general pool
-                // needs every warp past its reads before it is reused.
-                if (!shfl) __syncthreads();
+                // (or of the bit layout) needs every warp past its reads
+                // before it is reused.
+                if (BITS || !shfl) __syncthreads();
             } else {
                 const int din = op[F_DIN], dout = op[F_DOUT], per = op[F_PER];
                 const int dpad = op[F_DPAD];
@@ -760,36 +1010,64 @@ cudaLaunchConfig_t launch_config(int batch, int cluster, int threads,
     return cfg;
 }
 
-}  // namespace
-
-extern "C" int stream_fused_forward_f32(const int* meta, const float* fp,
-                                        const int* ip, const float* frames,
-                                        float* logits, float* accs, int batch,
-                                        int encode, int cluster, int threads,
-                                        int smem_bytes, void* stream) {
+template <bool BITS>
+int launch(const int* meta, const float* fp, const int* ip, const float* frames,
+           float* logits, float* accs, int batch, int encode, int cluster,
+           int threads, int smem_bytes, void* stream) {
     cudaError_t err = cudaFuncSetAttribute(
-        stream_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stream_fused_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg = launch_config(
         batch, cluster, threads, smem_bytes, static_cast<cudaStream_t>(stream), attr);
-    err = cudaLaunchKernelEx(&cfg, stream_fused_kernel, meta, fp, ip, frames,
+    err = cudaLaunchKernelEx(&cfg, stream_fused_kernel<BITS>, meta, fp, ip, frames,
                              logits, accs, encode);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }
 
-// Clusters of this shape the card holds at once (cudaOccupancyMaxActiveClusters).
-extern "C" int stream_fused_max_active_clusters(int cluster, int threads,
-                                                int smem_bytes, int* out) {
+template <bool BITS>
+int max_active(int cluster, int threads, int smem_bytes, int* out) {
     cudaError_t err = cudaFuncSetAttribute(
-        stream_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stream_fused_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchAttribute attr[1];
     const cudaLaunchConfig_t cfg =
         launch_config(1, cluster, threads, smem_bytes, nullptr, attr);
     return static_cast<int>(
-        cudaOccupancyMaxActiveClusters(out, stream_fused_kernel, &cfg));
+        cudaOccupancyMaxActiveClusters(out, stream_fused_kernel<BITS>, &cfg));
+}
+
+}  // namespace
+
+// One launch with spikes as f32 words, or (_bits) as bits.
+extern "C" int stream_fused_forward_f32(const int* meta, const float* fp,
+                                        const int* ip, const float* frames,
+                                        float* logits, float* accs, int batch,
+                                        int encode, int cluster, int threads,
+                                        int smem_bytes, void* stream) {
+    return launch<false>(meta, fp, ip, frames, logits, accs, batch, encode,
+                         cluster, threads, smem_bytes, stream);
+}
+
+extern "C" int stream_fused_forward_bits(const int* meta, const float* fp,
+                                         const int* ip, const float* frames,
+                                         float* logits, float* accs, int batch,
+                                         int encode, int cluster, int threads,
+                                         int smem_bytes, void* stream) {
+    return launch<true>(meta, fp, ip, frames, logits, accs, batch, encode,
+                        cluster, threads, smem_bytes, stream);
+}
+
+// Clusters of this shape the card holds at once (cudaOccupancyMaxActiveClusters).
+extern "C" int stream_fused_max_active_clusters(int cluster, int threads,
+                                                int smem_bytes, int* out) {
+    return max_active<false>(cluster, threads, smem_bytes, out);
+}
+
+extern "C" int stream_fused_max_active_clusters_bits(int cluster, int threads,
+                                                     int smem_bytes, int* out) {
+    return max_active<true>(cluster, threads, smem_bytes, out);
 }

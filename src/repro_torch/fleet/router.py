@@ -145,6 +145,7 @@ def merge_stats(parts: List[ServeStats], backend: str = "") -> ServeStats:
     for p in parts:
         if not merged.backend:
             merged.backend = p.backend
+        merged.frame_len = p.frame_len
         merged.requests += p.requests
         merged.batches += p.batches
         merged.accumulations += p.accumulations

@@ -19,6 +19,18 @@ which FC weight slices stay resident, in plain Python; the packing helpers
 (:func:`conv_weight_lists`, :func:`counter_map`) build the kernel's
 operands from the same numpy arrays as the reference.
 
+Two layouts hold the spikes a conv reads (``FusedLaunch.spikes``).  The
+f32 layout gives every position of every conv input, of the frames and
+of the pre-pool scratch an f32 word, in two timestep parities; the paper
+model's network fits it at every cluster size.  A wider network, such as
+the O'Shea-2018 CNN for RadioML 2018.01A (2 x 1,024 frames, seven convs
+of 64 channels), does not at any: the planner then takes the bit layout,
+32 positions a word, in which a conv lane tests a bit where it read a
+word, a warp's spikes become words by ballot, and the exchange moves
+words of 32 pooled positions (``csrc/stream_fused.cu``).  The two are one
+kernel source, a template on the layout; the membranes, FC inputs and
+weights are f32 in both, and both sum in the same order.
+
 ``stream_fused_forward`` launches the kernel for a CUDA tensor and runs
 :func:`stream_fused_forward_ref`, the plain PyTorch version, for a CPU
 tensor.  The plain version loops over T and the layers and adds every
@@ -379,6 +391,9 @@ N_SMS = 132               # SMs of an H100 SXM (the wrapper asks the card)
 POSITIONS = (4, 2, 1)     # conv output positions per lane (template P of the kernel)
 LIST_GROUP = 4            # a channel's weight list is padded to a multiple of this
 STAGE_ROWS = 256          # active non-resident FC weight rows staged a timestep
+SPIKES = ("f32", "bits")  # layouts of the spikes a conv reads (FusedLaunch.spikes)
+BITS_SLACK = 8            # words past a bit-layout input's rows that lanes past the width read
+MAX_BITS_KW = 65          # a bit-layout row's zero word pads up to 32 positions a side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -450,7 +465,15 @@ def split_outputs(n: int, cluster: int) -> Tuple[Tuple[int, int], ...]:
     return tuple((min(n, q * per), min(n, (q + 1) * per)) for q in range(cluster))
 
 
-def conv_weight_lists(layer: FusedConv, width: int, cluster: int):
+def _row_words(width: int) -> int:
+    """Words of one input row in the bit layout: a zero word (the row's
+    left padding and the row before's right padding), then the width's
+    positions, 32 a word, bit p % 32 of word 1 + p // 32."""
+    return 1 + -(-width // 32)
+
+
+def conv_weight_lists(layer: FusedConv, width: int, cluster: int,
+                      bits: bool = False):
     """Each CTA's nonzero conv weights, channel by channel, in ascending
     ic-major shift-buffer row ``k = ic*KW + ci`` (the order of the COO
     schedule, of the layer-by-layer conv's in-order sum and of the
@@ -458,13 +481,20 @@ def conv_weight_lists(layer: FusedConv, width: int, cluster: int):
     Returns ``(entries (C, L, 2) float32, rowptr (C, per+1) int32)``:
     entry = (weight, offset) with the int32 offset ``ic * (width
     + kw - 1) + ci`` stored in the float's bits, the offset into the
-    zero-padded input rows at which output position 0 reads; each
+    zero-padded input rows at which output position 0 reads (with
+    ``bits``, the bit offset ``ic * 32 * row_words + 32 + ci - left`` into
+    the bit layout's rows); each
     channel's list padded with (0, 0) to a multiple of 4 entries, and 8
     more (0, 0) entries after the CTA's last channel, which the kernel's
     walk reads ahead of use."""
-    wp = width + layer.kw - 1
     rows = np.arange(layer.kw * layer.ic)
-    offsets = ((rows % layer.ic) * wp + rows // layer.ic).astype(np.int32)
+    if bits:
+        left = (layer.kw - 1) // 2
+        offsets = ((rows % layer.ic) * 32 * _row_words(width) + 32
+                   + rows // layer.ic - left).astype(np.int32)
+    else:
+        wp = width + layer.kw - 1
+        offsets = ((rows % layer.ic) * wp + rows // layer.ic).astype(np.int32)
     per = -(-layer.oc // cluster)
     lists, ptrs = [], []
     for start, stop in split_outputs(layer.oc, cluster):
@@ -514,7 +544,10 @@ class FusedLaunch:
     whether the resident rows are all of them; ``positions`` is, per conv, the output positions a lane
     owns; ``owned`` is, per conv and FC layer, each CTA's [start, stop) of
     output channels or outputs.  ``waves`` is the batch's CTAs over what
-    the card holds at once, ``ctas_per_sm`` per SM."""
+    the card holds at once, ``ctas_per_sm`` per SM.  ``spikes`` is the
+    layout of the spikes every conv reads (its input buffers, the frames
+    and the pre-pool scratch): ``"f32"``, a float word a position, or
+    ``"bits"``, 32 positions a word."""
     cluster: int
     threads: int
     smem_bytes: int
@@ -526,6 +559,7 @@ class FusedLaunch:
     layout: Tuple[Tuple[str, int, int], ...]
     ctas_per_sm: int
     waves: int
+    spikes: str = "f32"
 
     def region(self, name: str) -> int:
         return next(off for n, off, _ in self.layout if n == name)
@@ -550,27 +584,47 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _in_words(stages, si) -> int:
+def _in_words(stages, si, bits=False) -> int:
     """Words of one copy of layer si's input buffer (16-byte multiple)."""
     layer = stages[si].layer
     if isinstance(layer, FusedConv):
+        if bits:   # + slack: lanes past the width read up to 6 words beyond
+            return _round4(layer.ic * _row_words(stages[si].width) + BITS_SLACK)
         # + slack: lanes past the width read up to 127 words beyond
         return _round4(layer.ic * (stages[si].width + layer.kw - 1) + 128)
     return _round4(layer.w.shape[0])
 
 
-def _in_bytes(stages, si) -> int:
+def _in_bytes(stages, si, bits=False) -> int:
     """Bytes every CTA receives into layer si's input each timestep."""
     prev = stages[si - 1]
     if isinstance(prev.layer, FusedConv):
-        return 4 * prev.layer.oc * (prev.width // prev.pool)
+        w2 = prev.width // prev.pool
+        if bits and isinstance(stages[si].layer, FusedConv):
+            return 4 * prev.layer.oc * -(-w2 // 32)
+        return 4 * prev.layer.oc * w2
     return 4 * prev.layer.w.shape[1]
 
 
-def _layout(stack, stages, cluster, rows, list_len, staged=None):
+def _bits_refused(stack, stages) -> Optional[str]:
+    """Why the bit layout cannot hold ``stack``'s spikes, or None."""
+    if not isinstance(stages[0].layer, FusedConv):
+        return "the first layer is not a conv"
+    if stack.timesteps > 32:
+        return f"{stack.timesteps} timesteps (the frames' flags take 32)"
+    wide = [st.layer.name for st in stages if isinstance(st.layer, FusedConv)
+            and st.layer.kw > MAX_BITS_KW]
+    return f"kernels wider than {MAX_BITS_KW} in {wide}" if wide else None
+
+
+def _layout(stack, stages, cluster, rows, list_len, staged=None, bits=False):
     """((region, word offset, words), ...) and bytes of one CTA's shared
     memory: per layer its input buffer and owned operands, FC weight
-    slices' first ``rows`` input rows (the others are read from L2)."""
+    slices' first ``rows`` input rows (the others are read from L2).
+    With ``bits`` every conv's input, the frames and the pre-pool spikes
+    ``spk`` hold 32 positions a word; the frames region also holds the
+    analog frames of an encoding launch and a word of per-timestep flags
+    (bit t: frame t is not all 0 or 1)."""
     regions = []
     cursor = 0
 
@@ -588,13 +642,15 @@ def _layout(stack, stages, cluster, rows, list_len, staged=None):
             k = st.layer
             # + slack: lanes past the width read up to 127 words beyond;
             # a layer fed by another has one buffer per timestep parity
-            take(f"in{si}", _in_words(stages, si) * (2 if si else 1))
+            take(f"in{si}", _in_words(stages, si, bits) * (2 if si else 1))
             take(f"list{si}", 2 * list_len[si])
             take(f"rowptr{si}", per + 1)
             take(f"cmap{si}", -(-k.ic * st.width // cluster))
             take(f"v{si}", per * st.width)
             take(f"lif{si}", 3 * per)
-            if not _pool_by_shuffle(st.pool):
+            if bits:
+                spk = max(spk, per * -(-st.width // 32))
+            elif not _pool_by_shuffle(st.pool):
                 spk = max(spk, per * st.width)
         else:
             din = st.layer.w.shape[0]
@@ -608,12 +664,15 @@ def _layout(stack, stages, cluster, rows, list_len, staged=None):
             max_din = max(max_din, din)
             fc_i += 1
     n_in = stack.in_ic * stack.in_width
+    frm = stack.timesteps * n_in
+    if bits:
+        frm = max(n_in, stack.timesteps * stack.in_ic * -(-stack.in_width // 32) + 1)
     take("mbar", 4 * len(stages))      # two 8-byte mbarriers a layer
     for name, words in (("spk", spk), ("stage", stage), ("idx", max_din + 40),
                         ("mask", -(-max_din // 32) + 1),
                         ("logit", -(-stack.n_classes // cluster)),
                         ("accs", 3 * stack.n_convs),
-                        ("frm", stack.timesteps * n_in), ("integ", n_in),
+                        ("frm", frm), ("integ", n_in),
                         ("yprev", n_in)):
         take(name, words)
     return tuple(regions), 4 * cursor
@@ -624,7 +683,8 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
                              cluster: Optional[int] = None,
                              threads: Optional[int] = None,
                              fc_resident: Optional[Tuple[bool, ...]] = None,
-                             active_clusters=None) -> FusedLaunch:
+                             active_clusters=None,
+                             spikes: Optional[str] = None) -> FusedLaunch:
     """The cluster size, threads, shared-memory layout and FC residency of
     a launch.
 
@@ -638,10 +698,19 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
     memory (L2) (or all rows resident or none, as ``fc_resident`` says).
     ``active_clusters(C, threads, smem_bytes)`` is how many such clusters
     the card holds at once (the wrapper asks the card; by default an
-    estimate from ``n_sms``), which gives the waves the batch takes.  Among
+    estimate from ``n_sms``), which gives the waves the batch takes; for
+    a bit-layout launch it is asked with ``spikes="bits"`` besides.  Among
     the plans whose CTA fits in 227 KB it takes the fewest waves, then the
     most FC weights resident, then the largest C (more SMs per sample),
-    then the most threads.  Raises past 232,448 bytes."""
+    then the most threads.
+
+    The spikes every conv reads are held as f32 words (``spikes="f32"``,
+    one a position) where any cluster size fits so; only where none does,
+    as 32 positions a word (``"bits"``: every conv input, the frames and
+    the pre-pool scratch; the membranes, FC inputs and weights stay f32),
+    which a stack whose first layer is a conv, whose convs are at most 65
+    wide and whose T is at most 32 can take.  ``spikes`` forces one.
+    Raises past 232,448 bytes in both."""
     stages, _ = _stages(stack)
     fcs = [i for i, st in enumerate(stages) if isinstance(st.layer, FusedFC)]
     if fc_resident is not None and len(fc_resident) != len(fcs):
@@ -651,6 +720,28 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
         raise ValueError(f"cluster {cluster} is not one of {CLUSTERS}")
     if threads is not None and threads not in THREAD_COUNTS:
         raise ValueError(f"threads {threads} is not one of {THREAD_COUNTS}")
+    if spikes is not None and spikes not in SPIKES:
+        raise ValueError(f"spikes {spikes!r} is not one of {SPIKES}")
+    refused = _bits_refused(stack, stages)
+    if spikes == "bits" and refused:
+        raise ValueError(f"the bit layout cannot hold this stack: {refused}")
+    layouts = [spikes == "bits"] if spikes else [False] + ([True] if not refused else [])
+    smallest = None
+    for bits in layouts:
+        options, least = _launch_options(
+            stack, stages, fcs, batch, n_sms, cluster, threads, fc_resident,
+            active_clusters, bits)
+        smallest = least if smallest is None else min(smallest, least)
+        if options:
+            return min(options, key=lambda o: o[0])[1]
+    raise ValueError(f"a CTA needs at least {smallest} bytes of shared "
+                     f"memory; the H100 gives {MAX_SMEM}")
+
+
+def _launch_options(stack, stages, fcs, batch, n_sms, cluster, threads,
+                    fc_resident, active_clusters, bits):
+    """``([(key, FusedLaunch)], smallest CTA bytes)``: the launches of one
+    spike layout that fit, each with the planner's sort key."""
     options, smallest = [], None
     for c in (CLUSTERS if cluster is None else (cluster,)):
         list_len = {i: conv_weight_lists(st.layer, st.width, c)[0].shape[1]
@@ -660,21 +751,22 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
         staged = [0] * len(fcs)
         if fc_resident is not None:
             rows = [d if r else 0 for d, r in zip(dins, fc_resident)]
-            layout, smem = _layout(stack, stages, c, rows, list_len)
+            layout, smem = _layout(stack, stages, c, rows, list_len, bits=bits)
         else:   # all rows; else, for the largest FC first, a staging area
             rows = list(dins)   # and as many resident rows as fit beside it
-            layout, smem = _layout(stack, stages, c, rows, list_len)
+            layout, smem = _layout(stack, stages, c, rows, list_len, bits=bits)
             for j in sorted(range(len(fcs)),
                             key=lambda j: -stages[fcs[j]].layer.w.size):
                 if smem <= MAX_SMEM:
                     break
                 rows[j] = 0
-                _, smem0 = _layout(stack, stages, c, rows, list_len, staged)
+                _, smem0 = _layout(stack, stages, c, rows, list_len, staged, bits)
                 row_bytes = 4 * _round4(-(-_outputs(stages[fcs[j]]) // c))
                 fit = max(0, (MAX_SMEM - smem0 - 16) // row_bytes)
                 staged[j] = min(dins[j], STAGE_ROWS, fit // 8 * 8)
                 rows[j] = min(dins[j], (fit - staged[j]) // 32 * 32)
-                layout, smem = _layout(stack, stages, c, rows, list_len, staged)
+                layout, smem = _layout(stack, stages, c, rows, list_len, staged,
+                                       bits)
         smallest = smem if smallest is None else min(smallest, smem)
         if smem > MAX_SMEM:
             continue
@@ -687,6 +779,8 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
                          SM_REGS // (MAX_REGS * n_threads))
             if active_clusters is None:
                 active = per_sm * n_sms // c
+            elif bits:
+                active = active_clusters(c, n_threads, smem, spikes="bits")
             else:
                 active = active_clusters(c, n_threads, smem)
             waves = -(-max(1, batch) // max(1, active))
@@ -695,11 +789,9 @@ def plan_stream_fused_launch(stack: FusedStack, batch: int, *,
                 for st in stages if isinstance(st.layer, FusedConv))
             options.append(((waves, off_chip, -c, -n_threads), FusedLaunch(
                 c, n_threads, smem, resident, tuple(rows), tuple(staged),
-                positions, owned, layout, per_sm, waves)))
-    if not options:
-        raise ValueError(f"a CTA needs at least {smallest} bytes of shared "
-                         f"memory; the H100 gives {MAX_SMEM}")
-    return min(options, key=lambda o: o[0])[1]
+                positions, owned, layout, per_sm, waves,
+                "bits" if bits else "f32")))
+    return options, smallest
 
 
 # meta layout: kept in sync with csrc/stream_fused.cu
@@ -711,7 +803,7 @@ _CONV = {name: i for i, name in enumerate(
     ("KIND", "KW", "IC", "OC", "W", "POOL", "PER", "P", "SIN", "SNEXT", "NKW",
      "SHFL", "SLIST", "GLIST", "NLIST", "SRP", "GRP", "NRP", "SCMAP", "GCMAP",
      "NCMAP", "SLIF", "GLIF", "NLIF", "SV", "GCNT", "GW", "CIDX", "MB", "EXPB",
-     "INSZ", "NMB", "NSZ"))}
+     "INSZ", "NMB", "NSZ", "XW", "NXW"))}
 _FC = {name: i for i, name in enumerate(
     ("KIND", "DIN", "DOUT", "PER", "DPAD", "SIN", "SNEXT", "RROWS", "SW", "GW",
      "SLIF", "GLIF", "NLIF", "SV", "LAST", "MB", "EXPB", "INSZ", "NMB", "NSZ",
@@ -745,10 +837,11 @@ def _exchange(plan: FusedLaunch, stages, si) -> Dict[str, int]:
     it receives a timestep, its buffer copy size, and the next layer's."""
     mbar = plan.region("mbar")
     nxt = si + 1 < len(stages)
-    return dict(MB=mbar + 4 * si, EXPB=_in_bytes(stages, si) if si else 0,
-                INSZ=_in_words(stages, si) if si else 0,
+    bits = plan.spikes == "bits"
+    return dict(MB=mbar + 4 * si, EXPB=_in_bytes(stages, si, bits) if si else 0,
+                INSZ=_in_words(stages, si, bits) if si else 0,
                 NMB=mbar + 4 * (si + 1) if nxt else 0,
-                NSZ=_in_words(stages, si + 1) if nxt else 0)
+                NSZ=_in_words(stages, si + 1, bits) if nxt else 0)
 
 
 def _pack(stack: FusedStack, plan: FusedLaunch, device: torch.device):
@@ -759,6 +852,7 @@ def _pack(stack: FusedStack, plan: FusedLaunch, device: torch.device):
         return packed
     stages, readout = _stages(stack)
     c = plan.cluster
+    bits = plan.spikes == "bits"
     meta = np.zeros(_HDR + _OPW * len(stages), dtype=np.int32)
     parts = ([], [])       # f32 operands, int32 operands
     sizes = [0, 0]
@@ -784,7 +878,7 @@ def _pack(stack: FusedStack, plan: FusedLaunch, device: torch.device):
         if isinstance(layer, FusedConv):
             if not np.isfinite(layer.w_cm).all():
                 raise ValueError(f"{layer.name}: weights must be finite")
-            entries, rowptr = conv_weight_lists(layer, st.width, c)
+            entries, rowptr = conv_weight_lists(layer, st.width, c, bits)
             share = -(-layer.ic * st.width // c)
             cmap = counter_map(layer, st.width).reshape(-1)
             cmap = _per_cta([cmap[q * share:(q + 1) * share] for q in range(c)])
@@ -803,6 +897,10 @@ def _pack(stack: FusedStack, plan: FusedLaunch, device: torch.device):
                 SV=region(f"v{si}"),
                 GCNT=put(1, layer.counts[0].astype(np.int32)),
                 GW=put(0, layer.w_cm.astype(np.float32)), CIDX=conv_i,
+                # the bit layout's row words, of this input and the next
+                XW=_row_words(st.width) if bits else 0,
+                NXW=(_row_words(st.width // st.pool)
+                     if bits and isinstance(nxt, FusedConv) else 0),
                 **_exchange(plan, stages, si))
             for name, v in vals.items():
                 op[_CONV[name]] = v
@@ -863,23 +961,29 @@ def launch_plan(stack: FusedStack, batch: int,
     return plan
 
 
+# the C entry points of each spike layout's kernel instance: launch, occupancy
+_ENTRY = {"f32": ("stream_fused_forward_f32", "stream_fused_max_active_clusters"),
+          "bits": ("stream_fused_forward_bits", "stream_fused_max_active_clusters_bits")}
+
+
 @functools.lru_cache(maxsize=None)
-def _active_clusters(cluster: int, threads: int, smem_bytes: int) -> int:
+def _active_clusters(cluster: int, threads: int, smem_bytes: int,
+                     spikes: str = "f32") -> int:
     from repro_torch.kernels.build import check, kernel_function
 
-    fn = kernel_function("stream_fused_max_active_clusters",
-                         [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.POINTER(ctypes.c_int)])
+    name = _ENTRY[spikes][1]
+    fn = kernel_function(name, [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
-    check(fn(cluster, threads, smem_bytes, ctypes.byref(out)),
-          "stream_fused_max_active_clusters")
+    check(fn(cluster, threads, smem_bytes, ctypes.byref(out)), name)
     return out.value
 
 
 def max_active_clusters(plan: FusedLaunch) -> int:
     """Clusters of ``plan``'s shape the card can hold at once
     (``cudaOccupancyMaxActiveClusters``); 0 where it can hold none."""
-    return _active_clusters(plan.cluster, plan.threads, plan.smem_bytes)
+    return _active_clusters(plan.cluster, plan.threads, plan.smem_bytes,
+                            plan.spikes)
 
 
 def _launch(stack: FusedStack, frames: torch.Tensor, encode: bool,
@@ -898,14 +1002,14 @@ def _launch(stack: FusedStack, frames: torch.Tensor, encode: bool,
         plan = launch_plan(stack, b, frames.device)
     meta, fparams, iparams = _pack(stack, plan, frames.device)
     vp = ctypes.c_void_p
-    fn = kernel_function("stream_fused_forward_f32",
-                         [vp, vp, vp, vp, vp, vp] + [ctypes.c_int] * 5 + [vp])
+    name = _ENTRY[plan.spikes][0]
+    fn = kernel_function(name, [vp, vp, vp, vp, vp, vp] + [ctypes.c_int] * 5 + [vp])
     err = fn(meta.data_ptr(), fparams.data_ptr(), iparams.data_ptr(),
              frames.data_ptr(), logits.data_ptr(), accs.data_ptr(), b,
              int(encode), plan.cluster, plan.threads, plan.smem_bytes,
              torch.cuda.current_stream(frames.device).cuda_stream)
-    check(err, "stream_fused_forward_f32")
-    count_launch(stream_fused_forward)
+    check(err, name)
+    count_launch(stream_fused_forward, plan)
     return logits, accs
 
 

@@ -176,7 +176,7 @@ def to_perfetto(dump: Dict[str, Any],
                 b = batches[sp["batch"]]
                 args.update(n_real=b["n_real"], bucket=b["bucket"],
                             flush=b["flush"], late_s=b["late_s"],
-                            hold_s=b.get("hold_s"))
+                            hold_s=b.get("hold_s"), waves=b.get("waves"))
             events.append({"ph": "X", "name": sp["name"], "pid": pid,
                            "tid": tids[sp["thread"]],
                            "ts": (t0 - t_min) * _US,

@@ -25,7 +25,9 @@ that serves it, in order: ``batcher.wait`` (for the first live request),
 future).  Each span keeps its batch id, its parent span, its thread, and
 its start and end on ``perf_counter``; each batch keeps its size, bucket,
 flush kind, the hold it was gathered under and, for a timeout flush, how
-late past that hold the flush came; each request its queue wait.  A wait
+late past that hold the flush came, and the planned waves of the
+whole-network launch that served it (0 where none did); each request its
+queue wait.  A wait
 that outlasts the consumer's poll is several ``batcher.wait`` spans in a
 row, the last one carrying the batch.
 :meth:`SpanLog.between` reads a window.
@@ -392,7 +394,7 @@ class SpanLog:
                            batch="q", thread="q", t0="d", t1="d")
         self.batches = _Ring(max(1, capacity // 4), batch="q", n_real="i",
                              bucket="i", kind="b", late_s="d", hold_s="d",
-                             t0="d")
+                             waves="i", t0="d")
         self.waits = _Ring(capacity, batch="q", wait_s="d", t0="d")
         self._scopes = {n: _Scope(self, n) for n in SPAN_NAMES}
 
@@ -401,6 +403,7 @@ class SpanLog:
         if not hasattr(st, "stack"):
             st.stack = []
             st.batch = -1
+            st.batch_row = -1   # the batch record of this thread's batch
             st.batch_t0 = math.nan
             st.thread = threading.get_native_id()
         return st
@@ -471,12 +474,23 @@ class SpanLog:
             r["kind"][i] = _KIND_ID[kind]
             r["late_s"][i] = late_s
             r["hold_s"][i] = hold_s
+            r["waves"][i] = 0
             r["t0"][i] = st.batch_t0
+            st.batch_row = i
             idx = self.waits.reserve_many(len(waits))
             c = self.waits.cols
             c["batch"][idx] = st.batch
             c["wait_s"][idx] = waits
             c["t0"][idx] = st.batch_t0
+
+    def note_waves(self, waves: int) -> None:
+        """The planned waves of the whole-network launch that served this
+        thread's current batch, into its batch record (0 until noted)."""
+        st = self._state()
+        r = self.batches.arrays
+        with self._lock:
+            if st.batch_row >= 0 and r["batch"][st.batch_row] == st.batch:
+                r["waves"][st.batch_row] = waves
 
     # -- reading --------------------------------------------------------------
 
@@ -509,7 +523,7 @@ class SpanWindow:
     ``spans``: ``name``, ``id``, ``parent`` (-1 at a batch's top level),
     ``batch`` (-1 outside a batch), ``thread``, ``t0``, ``t1``;
     ``batches``: ``batch``, ``n_real``, ``bucket``, ``kind``, ``late_s``,
-    ``hold_s``, ``t0``; ``waits``: ``batch``, ``wait_s``, ``t0``.
+    ``hold_s``, ``waves``, ``t0``; ``waits``: ``batch``, ``wait_s``, ``t0``.
     """
 
     spans: Dict[str, np.ndarray]
@@ -540,6 +554,7 @@ class SpanWindow:
                                     else float(b["late_s"][i])),
                          "hold_s": (None if math.isnan(b["hold_s"][i])
                                     else float(b["hold_s"][i])),
+                         "waves": int(b["waves"][i]),
                          "t0": float(b["t0"][i])}
                         for i in range(len(b["batch"]))],
         }

@@ -33,9 +33,11 @@ captured step shares), and why:
 
 A capture records the kernel launches it would make instead of counting
 them (:mod:`repro_torch.kernels.launches`); every replay adds that record
-to the wrappers' counts.  On the CPU nothing is captured: the engine runs
-``fn`` eagerly.  On the card nothing falls back: a step that fails to
-capture raises.
+to the wrappers' counts, and what they noted at capture (the
+whole-network kernel's ``FusedLaunch``) is kept per shape
+(:meth:`CapturedStep.noted`).  On the CPU nothing is captured: the engine
+runs ``fn`` eagerly.  On the card nothing falls back: a step that fails
+to capture raises.
 """
 from __future__ import annotations
 
@@ -48,7 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import ServeMesh, shard_serve_fn, split_batch
-from repro_torch.kernels.launches import add_launches, record_counts, recording
+from repro_torch.kernels.launches import (add_launches, record_counts,
+                                          record_details, recording)
 from repro_torch.obs.trace import span
 
 __all__ = ["EAGER_BACKENDS", "CapturedStep", "capture_graph", "captures"]
@@ -153,6 +156,8 @@ class CapturedStep:
                 self._pools.append(torch.cuda.graph_pool_handle())
         # full batch shape -> one graph per device
         self._graphs: Dict[Tuple[int, ...], List[_Graph]] = {}
+        # full batch shape -> what its graphs' launches noted at capture
+        self._noted: Dict[Tuple[int, ...], Tuple[Any, ...]] = {}
         self._lock = threading.Lock()
         self.replays = 0    # served steps (one replay on every device each)
 
@@ -166,6 +171,8 @@ class CapturedStep:
                 gs = self._graphs[shape] = [
                     self._capture(i, tuple(x.shape))
                     for i, x in enumerate(shards)]
+                self._noted[shape] = tuple(
+                    d for g in gs for d in record_details(g.launches))
             with span("step.copy_in"):
                 for g, x in zip(gs, shards):
                     g.host_in.numpy()[...] = x
@@ -226,7 +233,15 @@ class CapturedStep:
                     total[name] = total.get(name, 0) + n
             return total
 
+    def noted(self, shape: Tuple[int, ...]) -> Tuple[Any, ...]:
+        """What the launches of one served step of ``shape`` noted at its
+        capture, over the devices' graphs in order (one ``FusedLaunch`` a
+        device where the whole-network kernel serves); () before the
+        shape is captured."""
+        return self._noted.get(tuple(shape), ())
+
     def release(self) -> None:
         """Free every graph and its memory; a later call captures anew."""
         with self._lock:
             self._graphs.clear()
+            self._noted.clear()

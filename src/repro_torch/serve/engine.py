@@ -81,7 +81,7 @@ from repro_torch.models.graph import compile_snn, weight_values
 from repro_torch.models.snn import SNNConfig, sparsify_params
 from repro_torch.obs.activity import ActivityObserver
 from repro_torch.obs.metrics import default_registry
-from repro_torch.obs.trace import begin_trace, span, tadd, tfinish
+from repro_torch.obs.trace import begin_trace, span, span_log, tadd, tfinish
 from repro_torch.plan import compile_plan
 from repro_torch.serve.autotune import (
     AutotuneReport,
@@ -94,7 +94,8 @@ from repro_torch.serve.batcher import EngineClosed, MicroBatcher, QueueFull
 from repro_torch.serve.capture import CapturedStep, captures
 
 __all__ = ["AMCServeEngine", "AsyncAMCServeEngine", "BoundVersion",
-           "ServeStats", "count_batch_activity", "worker_hold"]
+           "ServeStats", "count_batch_activity", "step_launches",
+           "worker_hold"]
 
 #: Batches whose busy intervals set a worker's hold, as their median: one
 #: collector pause or one slow step does not set the next hold.
@@ -136,6 +137,7 @@ class ServeStats:
     queue_depths: List[int] = dataclasses.field(default_factory=list)
     padded_frames: int = 0
     short_holds: int = 0   # timeout flushes held shorter than max_delay
+    frame_len: int = 128   # samples a frame: the served model's input width
 
     def record_batch(self, backend: str, queue_depth: Optional[int] = None,
                      padded: int = 0, short_hold: bool = False) -> None:
@@ -154,8 +156,11 @@ class ServeStats:
         if len(self.latencies_s) > self.MAX_SAMPLES:
             del self.latencies_s[: -self.MAX_SAMPLES]
 
-    def throughput_samples_per_s(self, frame_len: int = 128) -> float:
-        return self.requests * frame_len / self.wall_s if self.wall_s else 0.0
+    def throughput_samples_per_s(self, frame_len: Optional[int] = None) -> float:
+        """Samples served a second, at ``frame_len`` samples a frame
+        (default: the served model's, :attr:`frame_len`)."""
+        n = self.frame_len if frame_len is None else frame_len
+        return self.requests * n / self.wall_s if self.wall_s else 0.0
 
     def throughput_fps(self) -> float:
         """Requests (frames) classified per wall second."""
@@ -250,6 +255,13 @@ def count_batch_activity(stats: ServeStats, sparse, frames: np.ndarray,
             stats.fetched_bits += bits_fetched(c)
 
 
+def step_launches(ver: "BoundVersion", shape) -> tuple:
+    """The whole-network launches (a ``FusedLaunch`` a device) that one
+    served step of ``shape`` replays, as its capture noted them; () where
+    none does: another backend, or no graph (the CPU)."""
+    return ver.graphs.noted(shape) if ver.graphs is not None else ()
+
+
 def _encoder(assignment):
     """The on-device Σ-Δ encoder a plan assignment serves with: the
     integer Q0.15 front end for the fixed tier, the float one otherwise."""
@@ -286,7 +298,7 @@ class AMCServeEngine:
         self.program = compile_snn(cfg)
         # the COO form only feeds the activity-counting hooks
         self.sparse = sparsify_params(params, masks) if count_activity else None
-        self.stats = ServeStats(backend=backend)
+        self.stats = ServeStats(backend=backend, frame_len=cfg.input_width)
         # artifacts come from the content-addressed plan cache: a restart
         # on unchanged weights rebuilds nothing
         self.plan = compile_plan(self.program, params, masks=masks,
@@ -520,7 +532,21 @@ class AsyncAMCServeEngine:
         self._m_batches = reg.counter(
             "repro_serve_batches_total", "Micro-batches served",
             ("engine", "backend"))
-        self.stats = ServeStats(backend=backend)
+        # the whole-network kernel's launches, counted at each served step
+        # from what its capture noted
+        self._m_fused_launches = reg.counter(
+            "repro_fused_launches_total",
+            "Whole-network kernel launches of the served steps, by spike "
+            "layout", ("engine", "layout"))
+        self._m_fused_waves = reg.counter(
+            "repro_fused_waves_total",
+            "Planned waves of those launches (the batch's clusters over "
+            "what the card holds at once)", ("engine", "layout"))
+        self._m_fused_smem = reg.gauge(
+            "repro_fused_smem_bytes",
+            "Shared memory of one CTA of the bucket's whole-network launch",
+            ("engine", "bucket"))
+        self.stats = ServeStats(backend=backend, frame_len=cfg.input_width)
         self._lock = threading.Lock()
 
         # serving table: label -> BoundVersion.  The primary takes all
@@ -675,7 +701,8 @@ class AsyncAMCServeEngine:
                     else None)
         return BoundVersion(label=label, backend=backend,
                             serve_step=serve_step, plan=plan, sparse=sparse,
-                            stats=ServeStats(backend=backend),
+                            stats=ServeStats(backend=backend,
+                                             frame_len=self.cfg.input_width),
                             activity=activity, graphs=graphs)
 
     def _warm(self, ver: BoundVersion) -> None:
@@ -743,6 +770,8 @@ class AsyncAMCServeEngine:
                 with span("engine.step"):
                     logits, accs = ver.serve_step(batch.frames)
                 t_step1 = time.perf_counter()
+                self._count_launches(step_launches(ver, batch.frames.shape),
+                                     batch.bucket)
                 with span("engine.resolve"):
                     self._resolve(batch, ver, logits, accs, t_step0, t_step1)
             except Exception as e:  # noqa: BLE001 — fail the batch's futures,
@@ -759,6 +788,22 @@ class AsyncAMCServeEngine:
                     self._busy_s += busy_s[-1]
                     if batch.short_hold:
                         self._held_busy_s += busy_s[-1]
+
+    def _count_launches(self, launches, bucket: int) -> None:
+        """The fused ``launches`` that served a batch of ``bucket`` rows:
+        the registry's launch, wave and shared-memory figures, and their
+        planned waves into the span log's batch record where it records
+        (0 where none served the batch)."""
+        log = span_log()   # None unless tracing or a profiler is on
+        if log is not None:
+            log.note_waves(max((ln.waves for ln in launches), default=0))
+        for ln in launches:
+            self._m_fused_launches.labels(engine=self.name,
+                                          layout=ln.spikes).inc()
+            self._m_fused_waves.labels(engine=self.name,
+                                       layout=ln.spikes).inc(ln.waves)
+            self._m_fused_smem.labels(engine=self.name,
+                                      bucket=str(bucket)).set(ln.smem_bytes)
 
     def _resolve(self, batch, ver: BoundVersion, logits: np.ndarray, accs,
                  t_step0: float, t_step1: float) -> None:

@@ -161,6 +161,27 @@ def test_fused_kernel_general_pool_equals_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [SMALL, SNNConfig(), POOL3], ids=["small", "paper", "pool3"])
+@pytest.mark.parametrize("b", [1, 3, 65])
+def test_fused_kernel_bit_layout_equals_plain(cuda, cfg, b):
+    """The bit layout at every cluster size and thread count, both encode
+    modes and non-binary frames, against the plain version bit for bit."""
+    stack = _plan(cfg, 0, cuda)[0].fused_stack()
+    launches = [plan_stream_fused_launch(stack, b, cluster=c, threads=n, spikes="bits")
+                for c in CLUSTERS for n in THREAD_COUNTS]
+    for encode, x in _fused_inputs(cfg, b, 3, cuda):
+        want = stream_fused_forward_ref(stack, x, encode=encode)
+        for launch in launches:
+            assert launch.spikes == "bits" and max_active_clusters(launch) > 0
+            got = stream_fused_forward(stack, x, encode=encode, plan=launch)
+            torch.cuda.synchronize()
+            what = f"C={launch.cluster} threads={launch.threads} encode={encode}"
+            for g, w_ in zip(got, want):
+                torch.testing.assert_close(g, w_, atol=0, rtol=0,
+                                           msg=lambda m: f"{what}: {m}")
+
+
+@pytest.mark.cuda
 def test_per_layer_kernels_equal_plain(cuda):
     rng = np.random.default_rng(0)
     s = torch.as_tensor((rng.random((16, 256)) < 0.5).astype(np.float32), device=cuda)
